@@ -8,33 +8,53 @@ CUDA card (an H100; ``nvcc`` under ``$CUDA_HOME`` or ``/usr/local/cuda``):
 Phases, each of which fails the run (nonzero exit, no result line) on any
 error or mismatch:
 
-1. build every kernel of the main path from ``src/repro_torch`` (one
-   ``nvcc`` per source, all started together) and print the build time;
+1. build every kernel from ``src/repro_torch`` (one ``nvcc`` per source,
+   all started together) and print the build time;
 2. hold each CUDA kernel against its plain PyTorch version on the card, at
-   the main path's shapes, bit-exact (integer outputs: no tolerance), and
-   time kernel, plain version and the library yardstick with CUDA events;
-3. the main path at full size: Real Job 3 (airline → extract → sumdelay →
+   the main paths' shapes -- the routing kernels bit-exact (integer outputs),
+   the attention kernels in bf16 at atol = rtol = 3e-2 (tests/test_kernels.py's
+   bf16 tolerance) and, per output row, within 1e-2 of the plain version's
+   norm; a planted fault (a dropped KV tile or split) must fail that check --
+   and time kernel, plain version and the library yardstick with CUDA events;
+3. the engine path at full size: Real Job 3 (airline → extract → sumdelay →
    routedelay) with 1000 key groups per operator on 16 nodes, one 2^20-tuple
    airline batch per tick for 20 ticks, every routed hop through both
-   kernels; the first 3 ticks are held bit-identical (sink counts and every
-   key group's state) to the port's own ``device="cpu"`` engine on the same
-   batches, tuple counts are conserved, and tuples/s is printed;
+   routing kernels; the first 3 ticks are held bit-identical (sink counts
+   and every key group's state) to the port's own ``device="cpu"`` engine
+   on the same batches, tuple counts are conserved, and tuples/s is printed;
 4. the ALBIC controller (``Controller.period()``) on Real Job 3 in the
    real-jobs benchmark's setup (anti-collocated start, ``max_migrations=10``,
    ``ser_cost=0.6``, ``service_rate=3000``) for 6 periods: each period's
    statistics snapshot is held against the CPU engine's, and the plan solved
    once on the card engine's snapshot is applied to both, whose routing
    tables and states must then agree;
-5. one JSON line listing the kernels with their launches on the main path
-   (phases 3-4), times, bounds and yardsticks;
+5. the LM path at full width: GLM-4-9B (40 layers, d_model 4096, vocab
+   151,552; ``max_seq_len`` cut to 4,096, the context) with random bf16
+   weights from a seeded generator on the card; 8 prompts of 2,048 tokens
+   prefilled through ``Model.forward(build_cache=True, cache_capacity=4096)``
+   (40 flash-attention launches) and 16 tokens decoded greedily (40
+   decode-attention launches per step); in one more bf16 prefill and one
+   more decode step, each layer's kernel output is held against its plain
+   version (flash) or the flash kernel (decode) on the same activations;
+   the first decoded token's logits are held against the last row of a
+   full forward over the prompt plus that token (in float32 on two layers
+   and two prompts: see ``check_prefill_decode`` for why not in bf16);
+6. the serve loop (``repro_torch.launch.serve.serve_loop``) on the same
+   model: 3 workers x 8 slots for 45 ticks, adapting every 15; sequences
+   must complete, memory stay within the card, and every applied migration
+   install exactly the cache rows it extracted, leaving the destination's
+   other slots unchanged;
 
-then the card's name and power limit (``nvidia-smi``), and, last, the line
-``{"ok": true, "device": {...}}``.  It exits nonzero without CUDA, and
-outside a checkout that holds ``src/repro_torch``.
+then one JSON line listing the kernels with their launches on the paths
+that run them (phases 3-4 for routing, 5-6 for attention), times, bounds
+and yardsticks; the card's name and power limit (``nvidia-smi``); and, last,
+the line ``{"ok": true, "device": {...}}``.  It exits nonzero without CUDA,
+and outside a checkout that holds ``src/repro_torch``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import pickle
 import subprocess
@@ -57,10 +77,32 @@ DRAIN_TICKS = 4
 CTL_KGS, CTL_NODES, CTL_RATE, CTL_TICKS, CTL_PERIODS = 30, 8, 220.0, 10, 6
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the 32-bit
-# non-tensor-core rate, which bounds the kernels' integer lanes.
+# LM path (phases 5-6): GLM-4-9B at full width, context cut to 4,096.
+LM_ARCH = "glm4_9b"
+LM_CONTEXT = 4096
+LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 8, 2048, 16
+SERVE = dict(ticks=45, workers=3, slots=8, arrival_rate=1.5, spl_ticks=15, hetero=0.5,
+             seed=SEED)
+ATTN_TOL = dict(atol=3e-2, rtol=3e-2)  # tests/test_kernels.py:47-50, bf16
+# On unit-randn inputs attention's outputs have std ~sqrt(e/n) (~0.04 at
+# n = 2048 keys), the size of ATTN_TOL itself, so a kernel that drops a
+# KV tile or split passes it.  Each output row (b, position, head) is also
+# held to |out - ref|_2 <= ATTN_ROW_RTOL * |ref|_2: bf16 rounding of P and
+# of the output gives ~3e-3, a dropped 16-key split at n = 2064 ~4e-2 or more.
+ATTN_ROW_RTOL = 1e-2
+# The prefill/decode consistency check's tolerance: tests/test_models.py:105-106
+# (bf16 parameters, different contraction orders), here at full width.
+LM_TOL = dict(atol=0.75, rtol=0.15)
+# Depth of the end-to-end check (full width, the first layers of the same
+# weights): see check_prefill_decode.
+CHECK_LAYERS = 2
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the 32-bit
+# non-tensor-core rate, which bounds the routing kernels' integer lanes, and
+# the dense bf16 tensor-core rate, which bounds attention's matrix products.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 FLOAT_RTOL = 1e-12
 
 
@@ -93,14 +135,50 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
+    t_ops = ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def max_err(out, ref, tol=ATTN_TOL) -> tuple[float, int]:
+    """(max |out - ref|, elements outside atol + rtol * |ref|)."""
+    diff = (out.float() - ref.float()).abs()
+    return float(diff.max()), int((diff > tol["atol"] + tol["rtol"] * ref.float().abs()).sum())
+
+
+def row_rel_err(out, ref) -> float:
+    """Largest |out - ref|_2 / |ref|_2 over the rows of the last axis (one
+    query position of one head)."""
+    ref = ref.float()
+    num = (out.float() - ref).norm(dim=-1)
+    return float((num / ref.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def attn_check(what: str, out, ref, tol=ATTN_TOL) -> tuple[float, float]:
+    """Hold an attention output to ``tol`` elementwise and to ATTN_ROW_RTOL
+    per row; returns (max |out - ref|, largest row error)."""
+    err, bad = max_err(out, ref, tol)
+    rel = row_rel_err(out, ref)
+    check(bad == 0, f"{what}: {bad} elements outside atol={tol['atol']:.4g} "
+          f"rtol={tol['rtol']:.4g} (max err {err})")
+    check(rel <= ATTN_ROW_RTOL, f"{what}: a row is {rel:.3e} of its norm away "
+          f"(limit {ATTN_ROW_RTOL})")
+    return err, rel
+
+
+def planted_fault(what: str, faulty, ref) -> tuple[float, int]:
+    """The row check must reject ``faulty``, a kernel output with keys
+    missing; returns the row error it saw and the elements that ATTN_TOL
+    alone would have flagged."""
+    rel = row_rel_err(faulty, ref)
+    check(rel > ATTN_ROW_RTOL, f"the attention check passes a planted fault ({what}): "
+          f"row error {rel:.3e} <= {ATTN_ROW_RTOL}")
+    return rel, max_err(faulty, ref)[1]
+
+
 # --------------------------------------------------------------------- phase 2
-def kernel_checks(dev, reps: int = 20) -> dict[str, dict]:
+def routing_kernel_checks(dev, reps: int = 20) -> dict[str, dict]:
     """Each kernel against its plain version on the card, bit-exact; times.
 
     Inputs rotate over several copies (more than the 50 MB L2 cache holds),
@@ -207,6 +285,147 @@ def kernel_checks(dev, reps: int = 20) -> dict[str, dict]:
         cases=cases,
     )
     out["radix_sort"] = main
+    return out
+
+
+def sdpa(q, k, v, **kw):
+    """The library yardstick on pre-transposed (B, heads, S, hd) tensors."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, enable_gqa=q.shape[1] != k.shape[1], **kw)
+
+
+ROTATE = 6  # decode timing: cache copies rotated past the L2 cache
+
+
+def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, cap=LM_CONTEXT,
+                            heads=32, kv=2, hd=128, window_batch=1, window=512,
+                            reps: int = 10) -> dict[str, dict]:
+    """Both attention kernels against their plain versions on the card, in
+    bf16, at GLM-4-9B's main-path shapes (prefill: B=8, S=T=2048, H=32,
+    KV=2, hd=128, causal; decode: B=8, T=4096), plus a window=512 flash
+    case and decode rows with kv_len in [1, T] including 1, T and lengths
+    that are not tile multiples.  Times: kernel, plain version and
+    ``scaled_dot_product_attention`` on pre-transposed tensors."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    out = {}
+    # -- flash: causal at the prefill's shape, then a window=512 case.
+    cases = []
+    for b, causal, win in ((batch, True, None), (window_batch, True, window)):
+        q, k, v = randn(b, seq, heads, hd), randn(b, seq, kv, hd), randn(b, seq, kv, hd)
+        got = flash_attention(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        err, rel = attn_check(f"flash_attention (B={b}, window={win}) against its plain version",
+                              got, attention_ref(q, k, v, causal=causal, window=win))
+        cases.append(dict(shape=f"q ({b},{seq},{heads},{hd}) k/v ({b},{seq},{kv},{hd}) bf16 "
+                          f"causal window={win}", max_abs_err=err, max_row_rel_err=rel))
+        if win is None:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            ms = cuda_ms(lambda i: flash_attention(q, k, v, causal=True), reps)
+            plain = cuda_ms(lambda i: attention_ref(q, k, v, causal=True), max(2, reps // 5))
+            lib = cuda_ms(lambda i: sdpa(qt, kt, vt, is_causal=True), reps)
+            pairs = seq * (seq + 1) // 2  # causal (query, key) pairs per head
+            flops = 4 * b * heads * hd * pairs
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+            main = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+            log(f"[kernel] flash_attention B={b} S={seq} H={heads} KV={kv} hd={hd} causal: "
+                f"{ms:.4f} ms (plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+                f"by {b_by}; {flops / ms / 1e9:.1f} TFLOP/s), max_abs_err={err} "
+                f"max_row_rel_err={rel:.3e}")
+        else:
+            # Planted fault: a window of seq - 64 drops the first KV tile
+            # (up to 64 keys) from the last rows; held against full causal.
+            fault, fault_bad = planted_fault(
+                "flash without the first KV tile of the last rows",
+                flash_attention(q, k, v, causal=True, window=seq - 64),
+                attention_ref(q, k, v, causal=True))
+            main["planted_fault_row_rel_err"] = fault
+            log(f"[kernel] flash_attention B={b} S={seq} window={win}: max_abs_err={err} "
+                f"max_row_rel_err={rel:.3e}; planted fault (first KV tile dropped for the "
+                f"last rows): row error {fault:.3e}, {fault_bad} elements outside ATTN_TOL")
+        del q, k, v, got
+    out["flash_attention"] = dict(
+        route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:115",
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        max_row_rel_err=max(c["max_row_rel_err"] for c in cases),
+        cases=cases,
+        **main,
+    )
+
+    # -- decode: per-row kv_len over [1, T] (1, T, non-tile multiples), then
+    # timing at the prefill's decode lengths (all rows at seq + 16).
+    q = randn(batch, 1, heads, hd)
+    kc, vc = randn(batch, cap, kv, hd), randn(batch, cap, kv, hd)
+    lens = torch.tensor([1, cap, 63, 65, 1000, 2049, 3333, cap - 1][:batch],
+                        dtype=torch.int32, device=dev)
+    got = decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    err, rel = attn_check("decode_attention against its plain version", got,
+                          decode_attention_ref(q, kc, vc, lens))
+    live_len = seq + LM_DECODE_STEPS
+    steady = torch.full((batch,), live_len, dtype=torch.int32, device=dev)
+    steady_ref = decode_attention_ref(q, kc, vc, steady)
+    err2, rel2 = attn_check(f"decode_attention (kv_len {live_len})",
+                            decode_attention(q, kc, vc, steady), steady_ref)
+    # Planted fault: the last 16 keys missing, as if the last split were
+    # dropped from the merge.
+    fault, fault_bad = planted_fault("decode without its last 16 keys",
+                                     decode_attention(q, kc, vc, steady - 16), steady_ref)
+    # The two kernels against each other on the same inputs: flash over the
+    # first kv_len keys without a causal mask computes what decode does.
+    pair = flash_attention(q, kc[:, :live_len].contiguous(), vc[:, :live_len].contiguous(),
+                           causal=False)
+    err3, rel3 = attn_check("flash_attention (causal=False) against decode_attention on the "
+                            "same inputs", pair, decode_attention(q, kc, vc, steady))
+    # Timing rotates over copies of the caches (their live rows, 2 x 8.5 MB
+    # each, more than the 50 MB L2 cache in all), so each timed launch reads
+    # its keys and values from device memory, as a decode step does.
+    copies = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(ROTATE - 1)]
+    tcopies = [tuple(x.transpose(1, 2).contiguous() for x in (q, a, b)) for a, b in copies]
+    mask = (torch.arange(cap, device=dev)[None, :] < steady[:, None])[:, None, None, :]
+    ms = cuda_ms(lambda i: decode_attention(q, *copies[i % ROTATE], steady), reps * 10)
+    plain = cuda_ms(lambda i: decode_attention_ref(q, *copies[i % ROTATE], steady), reps)
+    lib = cuda_ms(lambda i: sdpa(*tcopies[i % ROTATE], attn_mask=mask), reps * 10)
+    live = int(steady.sum())
+    nbytes = 2 * (2 * live * kv * hd + 2 * q.numel())
+    flops = 4 * heads * hd * live
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    log(f"[kernel] decode_attention B={batch} T={cap} H={heads} KV={kv} hd={hd} "
+        f"kv_len={live_len}: {ms:.4f} ms (plain {plain:.4f} ms, sdpa "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}; caches rotated over {ROTATE} copies), "
+        f"max_abs_err={max(err, err2)} max_row_rel_err={max(rel, rel2):.3e} (kv_len "
+        f"{lens.tolist()}); planted fault (last 16 keys dropped): row error {fault:.3e}, "
+        f"{fault_bad} elements outside ATTN_TOL; "
+        f"flash vs decode on the same inputs: max err {err3}, row error {rel3:.3e}")
+    out["decode_attention"] = dict(
+        route="cuda",
+        source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/decode_attention.py:84",
+        max_abs_err=max(err, err2),
+        max_row_rel_err=max(rel, rel2),
+        planted_fault_row_rel_err=fault,
+        ms=ms,
+        plain_ms=plain,
+        library_ms=lib,
+        bound_ms=b_ms,
+        bound_by=b_by,
+        shape=f"q ({batch},1,{heads},{hd}) caches ({batch},{cap},{kv},{hd}) bf16 "
+              f"kv_len {seq + LM_DECODE_STEPS}",
+    )
     return out
 
 
@@ -436,6 +655,364 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
     return {"migrations": total_migrations}
 
 
+# ------------------------------------------------------------------ phases 5-6
+def lm_config(arch: str = LM_ARCH, context: int = LM_CONTEXT, *, smoke: bool = False):
+    """The LM config at full width (or SMOKE, for a rehearsal on the CPU),
+    ``max_seq_len`` cut to the context."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch, smoke=smoke), max_seq_len=context)
+
+
+def prefill_decode(dev, cfg, params, *, batch: int, prompt: int, steps: int,
+                   context: int) -> dict:
+    """Prefill ``batch`` prompts of numpy-seeded tokens through
+    ``Model.forward(build_cache=True)``, then decode ``steps`` tokens
+    greedily; returns timings and what the consistency check needs."""
+    import torch
+
+    from repro_torch.models import Model
+
+    model = Model(cfg)
+    tokens = torch.from_numpy(
+        np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, prompt))
+    ).to(dev)
+    t0 = time.perf_counter()
+    logits, cache, _ = model.forward(params, tokens=tokens, build_cache=True,
+                                     cache_capacity=context)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    check(tuple(logits.shape) == (batch, prompt, cfg.vocab_size), "prefill logits shape")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    tok = logits[:, -1].argmax(-1)
+    del logits
+    first_tok, first_logits = tok.clone(), None
+    step_s = []
+    for step in range(steps):
+        pos = torch.full((batch,), prompt + step, dtype=torch.int64, device=dev)
+        t0 = time.perf_counter()
+        out, cache = model.decode_step(params, cache, tok[:, None], pos)
+        tok = out[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(out).all()), f"non-finite logits at decode step {step}")
+        if step == 0:
+            first_logits = out[:, 0].float().clone()
+    steady = sorted(step_s[1:]) or step_s
+    ms_step = 1e3 * steady[len(steady) // 2]
+    log(f"[lm] {cfg.name} L={cfg.num_layers} d={cfg.d_model} V={cfg.vocab_size}: prefill "
+        f"{batch}x{prompt} in {t_prefill:.3f} s = {batch * prompt / t_prefill:.0f} tokens/s; "
+        f"decode {ms_step:.3f} ms/step (median of {len(steady)}; first "
+        f"{1e3 * step_s[0]:.3f}) = {batch / (ms_step / 1e3):.1f} tokens/s")
+    return dict(
+        prefill_s=t_prefill,
+        prefill_tokens_per_s=batch * prompt / t_prefill,
+        decode_ms_per_step=ms_step,
+        decode_tokens_per_s=batch / (ms_step / 1e3),
+        first_step_ms=1e3 * step_s[0],
+        tokens=tokens,
+        first_tok=first_tok,
+        first_logits=first_logits,
+        cache=cache,
+        last_tok=tok,
+        next_pos=prompt + steps,
+    )
+
+
+def _paired(errs: list):
+    """A hook that holds a kernel's output against a second computation of
+    the same attention on the same activations.  The bf16 tolerance is for
+    unit-scale values and these activations are not (|v| reaches ~100 at
+    this initialization), so atol scales with the largest value the outputs
+    average over; the row check (ATTN_ROW_RTOL) is scale-free."""
+
+    def hold(what, out, ref, values):
+        scale = float(values.abs().max())
+        tol = dict(atol=ATTN_TOL["atol"] * scale, rtol=ATTN_TOL["rtol"])
+        errs.append(attn_check(what, out, ref, tol) + (scale,))
+
+    return hold
+
+
+def _paired_summary(errs: list, layers: int, what: str) -> tuple[float, float, float]:
+    check(len(errs) == layers, f"{what}: paired {len(errs)} layers, not {layers}")
+    return (max(e for e, _, _ in errs), max(r for _, r, _ in errs),
+            max(v for _, _, v in errs))
+
+
+def check_kernels_in_prefill(cfg, params, run: dict) -> dict:
+    """One more full-depth bf16 prefill of the main path's prompts in which
+    every layer's flash-kernel output is held against the plain version
+    (``attention_ref``, f32 math) on the same activations: the bf16
+    tensor-core kernel under the causal mask, at the main path's shapes.
+    Not counted as main-path launches."""
+    import torch
+
+    import repro_torch.models.transformer as transformer
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import Model
+
+    routed = transformer.attention
+    errs = []
+    hold = _paired(errs)
+
+    def paired(q, k, v, *, causal=True, window=None, **kw):
+        out = routed(q, k, v, causal=causal, window=window, **kw)
+        # One sequence at a time keeps the plain version's f32 scores small.
+        ref = torch.cat([attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal,
+                                       window=window) for i in range(q.shape[0])])
+        hold("flash kernel against its plain version inside the prefill", out, ref, v)
+        return out
+
+    transformer.attention = paired
+    try:
+        logits, _, _ = Model(cfg).forward(params, tokens=run["tokens"])
+    finally:
+        transformer.attention = routed
+    del logits
+    torch.cuda.synchronize()
+    worst, rel, vmax = _paired_summary(errs, cfg.num_layers, "prefill")
+    log(f"[lm] flash kernel vs plain version in each of {len(errs)} layers of a bf16 prefill "
+        f"{tuple(run['tokens'].shape)}: max err {worst} (max |v| {vmax}), max row error "
+        f"{rel:.3e}")
+    return dict(prefill_layers_paired=len(errs), prefill_paired_max_err=worst,
+                prefill_paired_max_row_rel_err=rel, prefill_paired_max_abs_v=vmax)
+
+
+def check_kernels_in_decode(cfg, params, run: dict) -> dict:
+    """One more full-depth bf16 decode step in which every layer's decode
+    attention is also computed by the flash kernel (no causal mask, over the
+    cache's live keys): the two kernels on the same real activations.  Not
+    counted as main-path launches."""
+    import torch
+
+    import repro_torch.models.transformer as transformer
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import Model
+
+    plain = transformer.decode_attention
+    errs = []
+    hold = _paired(errs)
+
+    def paired(q, ck, cv, kv_len, *, window=None):
+        out = plain(q, ck, cv, kv_len, window=window)
+        n = int(kv_len[0])
+        check(bool((kv_len == n).all()), "paired check needs one kv_len")
+        values = cv[:, :n].contiguous()
+        ref = flash_attention(q, ck[:, :n].contiguous(), values, causal=False)
+        hold("decode and flash kernels inside the decode step", out, ref, values)
+        return out
+
+    tok = run["last_tok"]
+    pos = torch.full((tok.shape[0],), run["next_pos"], dtype=torch.int64, device=tok.device)
+    transformer.decode_attention = paired
+    try:
+        Model(cfg).decode_step(params, run["cache"], tok[:, None], pos)
+    finally:
+        transformer.decode_attention = plain
+    torch.cuda.synchronize()
+    worst, rel, vmax = _paired_summary(errs, cfg.num_layers, "decode")
+    log(f"[lm] decode vs flash kernel in each of {len(errs)} layers of a decode step at "
+        f"kv_len {int(pos[0]) + 1}: max err {worst} (max |v| {vmax}), max row error {rel:.3e}")
+    return dict(layers_paired=len(errs), paired_max_err=worst, paired_max_row_rel_err=rel,
+                paired_max_abs_v=vmax)
+
+
+def check_prefill_decode(cfg, params, run: dict, *, context: int, rows: int = 2) -> dict:
+    """The first decoded token's logits against the last row of a full
+    forward over the prompt plus that token (tests/test_models.py:83-110 at
+    full width): prefill through the flash kernel, decode through the decode
+    kernel, at tests/test_models.py:105-106's tolerance; argmax must agree on
+    rows whose top-2 margin exceeds twice the measured max difference.
+
+    The reference's initialization (std = 1/sqrt(shape[-2]), so the 3-D
+    projections' fan-in is heads or head_dim) gives attention scores of std
+    ~500 at GLM-4-9B's width: the softmax is all but one-hot, and the model
+    is chaotic in depth -- two evaluation orders (prefill at S=2048 against
+    a forward at S=2049, whose matmuls round differently) drift apart layer
+    by layer until the logits disagree, in bf16 and in f32 alike (on the CPU,
+    at 512 tokens, f32 against f64: max |diff| 0.009 after 2 layers, 0.92
+    after 4, 2.9 after 12 at 64 tokens).  So the gated check runs in float32
+    on the first ``CHECK_LAYERS`` layers of the same weights, at full width,
+    on the first ``rows`` prompts; the full-depth bf16 comparison is
+    measured and printed, not gated.  In float32 the flash wrapper runs its
+    CUDA-core path, not the bf16 tensor-core path of the main prefill: that
+    one is held at full depth by check_kernels_in_prefill (against the plain
+    version on the prefill's own activations), and the decode kernel by
+    check_kernels_in_decode (against the flash kernel on identical inputs).
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_map
+
+    tokens, nxt = run["tokens"][:rows], run["first_tok"][:rows, None]
+    prompt = tokens.shape[1]
+    pos = torch.full((rows,), prompt, dtype=torch.int64, device=tokens.device)
+
+    def last_row(model, p):
+        logits, _, _ = model.forward(p, tokens=torch.cat([tokens, nxt], dim=1))
+        out = logits[:, -1].float().clone()
+        del logits
+        return out
+
+    def compare(got, ref):
+        max_diff, bad = max_err(got, ref, LM_TOL)
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * max_diff
+        agree = got.argmax(-1) == ref.argmax(-1)
+        return max_diff, bad, clear, agree
+
+    # bf16 at full depth, for the record: the main path's first decode.
+    b_diff, b_bad, _, b_agree = compare(run["first_logits"][:rows], last_row(Model(cfg), params))
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", cycles=CHECK_LAYERS)
+    p32 = tree_map(lambda a: a.float(), params)
+    p32["blocks"] = tree_map(lambda a: a[:CHECK_LAYERS], p32["blocks"])
+    model = Model(cfg32)
+    logits, cache, _ = model.forward(p32, tokens=tokens, build_cache=True, cache_capacity=context)
+    del logits
+    dec, _ = model.decode_step(p32, cache, nxt, pos)
+    del cache
+    got = dec[:, 0].float()
+    ref = last_row(model, p32)
+    del p32
+    max_diff, bad, clear, agree = compare(got, ref)
+    check(bad == 0, f"f32 decode logits disagree with the full forward: {bad} of "
+          f"{got.numel()} outside atol={LM_TOL['atol']} rtol={LM_TOL['rtol']} "
+          f"(max diff {max_diff})")
+    check(bool(agree[clear].all()), "argmax differs on a row with a clear top-2 margin")
+    res = dict(consistency_max_diff_f32=max_diff, logit_absmax=float(ref.abs().max()),
+               argmax_rows_clear=int(clear.sum()), argmax_rows_agree=int(agree.sum()),
+               bf16_full_depth_max_diff=b_diff, bf16_full_depth_outside_tol=b_bad,
+               bf16_full_depth_argmax_rows_agree=int(b_agree.sum()))
+    log(f"[lm] decode vs full forward, f32, {CHECK_LAYERS} layers, {rows} rows: max diff "
+        f"{max_diff:.6f} (|logit| max {res['logit_absmax']:.4f}); argmax agrees on "
+        f"{res['argmax_rows_agree']}/{rows} rows, {res['argmax_rows_clear']} with a clear "
+        f"margin.  bf16, {cfg.num_layers} layers (not gated): max diff {b_diff:.4f}, {b_bad} "
+        f"of {got.numel()} outside the tolerance, argmax agrees on "
+        f"{res['bf16_full_depth_argmax_rows_agree']}/{rows}")
+    return res
+
+
+def profile_decode(cfg, params, run: dict, steps: int = 3) -> dict:
+    """Device busy share of a few full-depth decode steps (torch.profiler):
+    summed kernel time over wall time, and the kernels that take it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import Model
+
+    model = Model(cfg)
+    tok = run["last_tok"][:, None]
+    base = run["next_pos"] + 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            pos = torch.full((tok.shape[0],), base + i, dtype=torch.int64, device=tok.device)
+            model.decode_step(params, run["cache"], tok, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        # Device-side events only (kernels, copies): a CPU op's device time
+        # repeats that of the kernels it launched.
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    res = dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall if rows else None,
+               top=[(k, round(us / 1e3, 3), n) for us, k, n in rows[:8]])
+    if rows:
+        log(f"[profile] {steps} decode steps: wall {wall * 1e3:.3f} ms, device busy "
+            f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f} %); top kernels (ms, launches): "
+            f"{res['top']}")
+    else:
+        log("[profile] torch.profiler recorded no device time: busy share not measured")
+    return res
+
+
+def run_serve(dev, cfg, params, settings: dict) -> dict:
+    """The port's serve loop at full width, with every migration checked:
+    the installed rows equal the extracted ones and the destination's other
+    slots keep their contents (per-slot float64 checksums)."""
+    import torch
+
+    from repro_torch.launch.serve import DecodeWorker, serve_loop
+
+    checked = []
+
+    def slot_sums(cache) -> torch.Tensor:
+        # (slots,) float64 checksum per (leaf, slot); scan leaves are
+        # (cycles, slots, cap, KV, hd): the slot is axis 1.
+        return torch.stack([a.double().sum(dim=(0, 2, 3, 4))
+                            for e in cache["scan"] for a in e.values()])
+
+    class CheckedWorker(DecodeWorker):
+        def extract(self, slot):
+            blob = super().extract(slot)
+            blob["sums"] = slot_sums(self.cache)[:, slot].clone()
+            return blob
+
+        def install(self, slot, blob, sid):
+            before = slot_sums(self.cache)
+            super().install(slot, blob, sid)
+            after = slot_sums(self.cache)
+            others = [s for s in range(self.slots) if s != slot]
+            check(torch.equal(after[:, slot], blob["sums"]),
+                  "a migration installed other rows than it extracted")
+            check(torch.equal(after[:, others], before[:, others]),
+                  "a migration changed the destination's other slots")
+            for e, rows in zip(self.cache["scan"], blob["cache"]["scan"]):
+                for n, a in e.items():
+                    check(torch.equal(a[:, slot], rows[n][:, 0]),
+                          "installed rows differ from the extracted ones")
+            checked.append((slot, sid))
+
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    t0 = time.perf_counter()
+    stats = serve_loop(cfg, params, device=dev, worker_cls=CheckedWorker,
+                       log=lambda m: (lines.append(m), log(m)), **settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    check(stats.completed > 0, "no sequence completed")
+    check(stats.migrations == len(checked), "a migration bypassed the checks")
+    check(stats.migrations > 0, "the serve loop applied no migration")
+    check(peak < total, f"peak memory {peak} exceeds the card's {total}")
+    res = dict(
+        wall_s=wall,
+        completed=stats.completed,
+        migrations=stats.migrations,
+        decode_tokens=stats.decode_tokens,
+        decode_seconds=stats.decode_seconds,
+        decode_tokens_per_s=stats.decode_tokens / stats.decode_seconds,
+        p50_ticks=stats.percentile(50),
+        p99_ticks=stats.percentile(99),
+        max_workers=stats.max_workers,
+        peak_mem_gb=peak / 1e9,
+    )
+    log(f"[serve] {cfg.name} L={cfg.num_layers} d={cfg.d_model}: {stats.ticks} ticks in {wall:.3f} s, "
+        f"{stats.completed} completed, p50={res['p50_ticks']:.1f} p99={res['p99_ticks']:.1f} "
+        f"ticks, {stats.migrations} migrations (rows checked), {stats.decode_tokens} decode "
+        f"tokens in {stats.decode_seconds:.3f} s = {res['decode_tokens_per_s']:.1f} tokens/s, "
+        f"workers {stats.max_workers}, peak memory {res['peak_mem_gb']:.2f} GB")
+    return res
+
+
 def gpu_name_and_limit() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -464,31 +1041,84 @@ def main() -> int:
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 
     dev = torch.device("cuda", 0)
+    # Full-precision f32 products wherever f32 appears (the plain versions).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = gpu_name_and_limit()
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
+    launches = dict.fromkeys(_build.SOURCES, 0)
+
+    def drive(kernel_names, fn, *args, **kwargs):
+        """Run one path with the counts at 0; add its launches of the named
+        kernels (each must have launched) to the JSON line's counts."""
+        reset_launch_counts()
+        result = fn(*args, **kwargs)
+        counts = launch_counts()
+        for name in kernel_names:
+            check(counts[name] > 0, f"kernel {name} was not launched on its path")
+            launches[name] += counts[name]
+        return result, counts
+
     try:
         t0 = time.perf_counter()
         built = _build.build()
         log(f"[build] {built} in {time.perf_counter() - t0:.2f} s wall")
 
-        kernels = kernel_checks(dev)
+        kernels = routing_kernel_checks(dev)
+        kernels.update(attention_kernel_checks(dev))
+        gc.collect()
+        torch.cuda.empty_cache()
 
-        reset_launch_counts()
-        engine = run_engine(
-            dev, batch=BATCH, kgs=KGS, nodes=NODES, ticks=TICKS, check_ticks=CHECK_TICKS
+        routing = ("keygroup_partition", "radix_sort")
+
+        def engine_paths():
+            engine = run_engine(
+                dev, batch=BATCH, kgs=KGS, nodes=NODES, ticks=TICKS,
+                check_ticks=CHECK_TICKS,
+            )
+            controller = run_controller(
+                dev, kgs=CTL_KGS, nodes=CTL_NODES, rate=CTL_RATE, ticks=CTL_TICKS,
+                periods=CTL_PERIODS,
+            )
+            return engine, controller
+
+        (engine, controller), _ = drive(routing, engine_paths)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        from repro_torch.models import init_params
+
+        cfg = lm_config()
+        t0 = time.perf_counter()
+        params = init_params(cfg, SEED, device=dev)
+        torch.cuda.synchronize()
+        log(f"[lm] {cfg.name}: {cfg.param_count()} parameters initialized on the card in "
+            f"{time.perf_counter() - t0:.2f} s ({torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+        run, lm_counts = drive(
+            ("flash_attention", "decode_attention"), prefill_decode, dev, cfg, params,
+            batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_DECODE_STEPS, context=LM_CONTEXT,
         )
-        controller = run_controller(
-            dev, kgs=CTL_KGS, nodes=CTL_NODES, rate=CTL_RATE, ticks=CTL_TICKS,
-            periods=CTL_PERIODS,
-        )
-        launches = launch_counts()
-        for name, count in launches.items():
-            check(count > 0, f"kernel {name} was not launched on the main path")
+        check(lm_counts["flash_attention"] == cfg.num_layers,
+              f"prefill launched flash_attention {lm_counts['flash_attention']} times, "
+              f"not once per layer ({cfg.num_layers})")
+        check(lm_counts["decode_attention"] == cfg.num_layers * LM_DECODE_STEPS,
+              f"decode launched decode_attention {lm_counts['decode_attention']} times, "
+              f"not {cfg.num_layers} per step x {LM_DECODE_STEPS}")
+        lm = {k: v for k, v in run.items()
+              if k != "next_pos" and not isinstance(v, (torch.Tensor, dict))}
+        lm.update(check_kernels_in_decode(cfg, params, run))
+        lm["profile"] = profile_decode(cfg, params, run)
+        del run["cache"]
+        lm.update(check_kernels_in_prefill(cfg, params, run))
+        lm.update(check_prefill_decode(cfg, params, run, context=LM_CONTEXT))
+        del run
+        served, serve_counts = drive(("decode_attention",), run_serve, dev, cfg, params, SERVE)
+        check(serve_counts["flash_attention"] == 0, "the serve loop launched flash_attention")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"[summary] engine {engine}; controller {controller}; "
+    log(f"[summary] engine {engine}; controller {controller}; lm {lm}; serve {served}; "
         f"{time.perf_counter() - t_start:.1f} s total")
     rows = [dict(name=name, launches=launches[name], **kernels[name]) for name in kernels]
     print(json.dumps({"kernels": rows}))

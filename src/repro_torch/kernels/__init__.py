@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the engine's routing hot path.
+"""Hand-written CUDA kernels: the engine's routing and the LM's attention.
 
 Each kernel package holds
 
@@ -9,11 +9,16 @@ Each kernel package holds
   tensor;
 * ``ref.py`` — the plain PyTorch version.
 
-``keygroup_partition`` (hash partition + arrival histogram) and
-``radix_sort`` (stable bucketed argsort of the routing composite) replace
-the reference package's Pallas kernels of the same names.
+``keygroup_partition`` (hash partition + arrival histogram), ``radix_sort``
+(stable bucketed argsort of the routing composite), ``flash_attention``
+(causal / windowed GQA prefill attention) and ``decode_attention``
+(one-token attention over a KV cache) replace the reference package's
+Pallas kernels of the same names.  Code shared by several sources lives in
+``csrc/*.cuh`` here.
 """
 
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.keygroup_partition import keygroup_partition
 from repro_torch.kernels.radix_sort import bucket_argsort
 
@@ -21,6 +26,8 @@ from repro_torch.kernels.radix_sort import bucket_argsort
 KERNELS = {
     "keygroup_partition": keygroup_partition,
     "radix_sort": bucket_argsort,
+    "flash_attention": flash_attention,
+    "decode_attention": decode_attention,
 }
 
 
@@ -33,5 +40,5 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "bucket_argsort", "keygroup_partition", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["KERNELS", "bucket_argsort", "decode_attention", "flash_attention",
+           "keygroup_partition", "launch_counts", "reset_launch_counts"]

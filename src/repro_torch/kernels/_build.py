@@ -29,7 +29,13 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 SOURCES = {
     "keygroup_partition": _KERNELS_DIR / "keygroup_partition" / "csrc" / "keygroup_partition.cu",
     "radix_sort": _KERNELS_DIR / "radix_sort" / "csrc" / "radix_sort.cu",
+    "flash_attention": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "decode_attention": _KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu",
 }
+
+#: Headers shared between sources (``kernels/csrc/*.cuh``); part of every
+#: library's hash, so an edited header rebuilds its users.
+HEADERS = sorted((_KERNELS_DIR / "csrc").glob("*.cuh"))
 
 NVCC_FLAGS = (
     "-gencode",
@@ -66,6 +72,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = SOURCES[name]
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in HEADERS:
+        digest.update(header.read_bytes())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,0 +1,133 @@
+"""Decode caches as trees with a stacked layer dim, as in the reference.
+
+Cache layout mirrors the parameter layout: one stacked entry per pattern
+position (leading dim = cycles), plus unstacked entries for remainder blocks
+and, for enc-dec models, a per-decoder-layer cross-attention cache.  So a
+``scan`` leaf of an attention block is ``(cycles, batch, cap, KV, hd)``: the
+batch (sequence slot) is axis 1, not axis 0.
+
+``init_cache`` materializes zeros for serving; the sharded ShapeDtypeStruct
+form and the logical axes wait for the mesh tooling (ROADMAP queue 1,
+item 11).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import (
+    ATTN,
+    ATTN_MOE,
+    LOCAL_ATTN,
+    MLSTM,
+    RGLRU,
+    SLSTM,
+    ModelConfig,
+)
+from repro_torch.device import resolve_device
+
+
+def _block_cache_shapes(
+    cfg: ModelConfig, kind: str, batch: int, capacity: int
+) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    h = cfg.num_heads
+    d = cfg.d_model
+    if kind in (ATTN, ATTN_MOE):
+        cap = min(capacity, cfg.max_seq_len)
+        return {
+            "k": ((batch, cap, kv, hd), torch.bfloat16),
+            "v": ((batch, cap, kv, hd), torch.bfloat16),
+        }
+    if kind == LOCAL_ATTN:
+        w = min(cfg.local_window, capacity)
+        return {
+            "k": ((batch, w, kv, hd), torch.bfloat16),
+            "v": ((batch, w, kv, hd), torch.bfloat16),
+        }
+    if kind == RGLRU:
+        w = cfg.lru_width or d
+        return {
+            "h": ((batch, w), torch.float32),
+            "conv": ((batch, 3, w), torch.bfloat16),
+        }
+    if kind == MLSTM:
+        mhd = d // h
+        return {
+            "C": ((batch, h, mhd, mhd), torch.float32),
+            "n": ((batch, h, mhd), torch.float32),
+            "m": ((batch, h), torch.float32),
+        }
+    if kind == SLSTM:
+        return {
+            "c": ((batch, d), torch.float32),
+            "n": ((batch, d), torch.float32),
+            "h": ((batch, d), torch.bfloat16),
+            "m": ((batch, d), torch.float32),
+        }
+    raise ValueError(kind)
+
+
+def init_cache(
+    cfg: ModelConfig, batch: int, capacity: int, enc_len: int = 0, *, device="cuda"
+) -> dict:
+    """Zero caches for ``batch`` slots of ``capacity`` positions (bf16 k/v,
+    as the reference hard-wires), on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
+
+    def make(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    cache: dict[str, Any] = {"scan": [], "rem": []}
+    for kind in cfg.pattern:
+        shapes = _block_cache_shapes(cfg, kind, batch, capacity)
+        cache["scan"].append(
+            {n: make((cfg.cycles, *shp), dt) for n, (shp, dt) in shapes.items()}
+        )
+    for kind in cfg.remainder:
+        shapes = _block_cache_shapes(cfg, kind, batch, capacity)
+        cache["rem"].append({n: make(shp, dt) for n, (shp, dt) in shapes.items()})
+    if cfg.is_encdec:
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        # Cross-attention k/v over the encoder sequence, one per decoder layer.
+        cache["cross"] = {
+            "k": make((cfg.cycles, batch, enc_len, kv, hd), torch.bfloat16),
+            "v": make((cfg.cycles, batch, enc_len, kv, hd), torch.bfloat16),
+        }
+    return cache
+
+
+def cache_capacity(cfg: ModelConfig, kind: str, capacity: int) -> int:
+    if kind == LOCAL_ATTN:
+        return min(cfg.local_window, capacity)
+    return min(capacity, cfg.max_seq_len)
+
+
+def update_kv(
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    positions: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write one token's k/v (B,1,KV,hd) at per-batch positions (mod
+    capacity).
+
+    Writes **in place** into ``cache_k``/``cache_v`` and returns them: the
+    reference's functional update copies the whole cache, which at serving
+    sizes is gigabytes per token.  Mixed dtypes raise, as the reference's
+    ``dynamic_update_slice`` does.
+    """
+    if k_new.dtype != cache_k.dtype or v_new.dtype != cache_v.dtype:
+        raise TypeError(
+            f"cache is {cache_k.dtype}, new k/v are {k_new.dtype}: the reference's "
+            "update_kv rejects mixed dtypes too"
+        )
+    cap = cache_k.shape[1]
+    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    idx = positions.to(cache_k.device).long() % cap
+    cache_k[rows, idx] = k_new[:, 0]
+    cache_v[rows, idx] = v_new[:, 0]
+    return cache_k, cache_v

@@ -1,0 +1,399 @@
+"""Model assembly from a config's block pattern: the serving path.
+
+Parameters and caches keep the reference's tree layout: dicts whose
+``blocks``/``scan`` entries carry a leading ``cycles`` dim, so the tests
+compare like with like.  Inside, a plain Python loop over layers takes the
+place of ``lax.scan``; remat does not apply to inference.
+
+The ATTN block kind runs (every dense config: GLM-4, Llama-3.2,
+Mistral-NeMo, Gemma, the Qwen2-VL backbone with M-RoPE).  The other kinds,
+encoder-decoder models and training raise ``NotImplementedError`` naming
+their ROADMAP item.
+
+Step builders:
+
+* ``make_prefill_step`` — forward + cache construction (prefill shapes)
+* ``make_serve_step``  — one-token decode against a cache (decode shapes)
+* ``make_train_step``  — not ported yet (raises)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import (
+    ATTN,
+    ATTN_MOE,
+    LOCAL_ATTN,
+    MLSTM,
+    RGLRU,
+    SLSTM,
+    ModelConfig,
+    torch_dtype,
+)
+from repro_torch.device import resolve_device
+from repro_torch.models import kvcache as kv
+from repro_torch.models.common import (
+    ParamSpec,
+    apply_norm,
+    init_from_specs,
+    norm_specs,
+    softcap,
+    tree_map,
+)
+from repro_torch.models.layers import (
+    attention,
+    attn_specs,
+    decode_attention,
+    mlp_forward,
+    mlp_specs,
+    position_encode,
+    qkv_project,
+)
+
+#: Block kinds and model families not ported yet → their ROADMAP item.
+UNPORTED = {
+    RGLRU: "queue 1, item 10a (RecurrentGemma serving: rglru_scan, windowed decode)",
+    LOCAL_ATTN: "queue 1, item 10a (RecurrentGemma serving: rglru_scan, windowed decode)",
+    ATTN_MOE: "queue 1, item 10b (MoE serving: moe_gemm)",
+    MLSTM: "queue 1, item 10d (xLSTM and Whisper)",
+    SLSTM: "queue 1, item 10d (xLSTM and Whisper)",
+    "encdec": "queue 1, item 10d (xLSTM and Whisper)",
+    "train": "queue 1, item 10c (the training path)",
+}
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot run yet."""
+    for kind in (*cfg.pattern, *cfg.remainder):
+        if kind != ATTN:
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} is not ported yet (ROADMAP "
+                f"{UNPORTED.get(kind, 'queue 1, item 10')})"
+            )
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP "
+            f"{UNPORTED['encdec']})"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+
+def _block_specs(cfg: ModelConfig) -> dict:
+    """An ATTN block's specs (the only kind ported; see ``require_ported``)."""
+    return {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+
+
+def _stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
+    return ParamSpec(
+        shape=(n, *spec.shape),
+        logical=("layers", *spec.logical),
+        init=spec.init,
+        scale=spec.scale,
+    )
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    require_ported(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    specs: dict[str, Any] = {
+        "embed": ParamSpec((v, d), ("vocab", "embed_nofsdp")),
+        "final_norm": norm_specs(cfg.norm_kind, d),
+        "blocks": [],
+        "rem_blocks": [],
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((d, v), ("embed_nofsdp", "vocab"))
+    if cfg.rope_kind == "learned":
+        specs["pos_embed"] = ParamSpec((cfg.max_seq_len, d), (None, "embed"))
+    for _ in cfg.pattern:
+        specs["blocks"].append(
+            tree_map(
+                lambda s: _stack_spec(s, cfg.cycles),
+                _block_specs(cfg),
+                is_leaf=lambda x: isinstance(x, ParamSpec),
+            )
+        )
+    for _ in cfg.remainder:
+        specs["rem_blocks"].append(_block_specs(cfg))
+    return specs
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
+    """Random parameters in ``cfg.dtype``, drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_from_specs(param_specs(cfg), gen, torch_dtype(cfg.dtype), dev)
+
+
+# ---------------------------------------------------------------------------
+# Block forward
+# ---------------------------------------------------------------------------
+
+
+def _norms(p: dict) -> dict:
+    return {k[5:]: v for k, v in p.items() if k.startswith("norm_")}
+
+
+def _attn_part(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    causal: bool,
+    window: Optional[int],
+    cache: Optional[dict],
+    decode_positions: Optional[torch.Tensor],
+) -> tuple[torch.Tensor, dict]:
+    """Attention sublayer.  Returns (residual-added x, built/updated cache)."""
+    h = apply_norm(cfg.norm_kind, _norms(p), x)
+    q, k_, v_ = qkv_project(cfg, p, h)
+    if cache is None:
+        q, k_ = position_encode(cfg, q, k_, positions)
+        out = attention(
+            q, k_, v_, causal=causal, window=window, max_full_seq=cfg.full_attn_max_seq
+        )
+        new_cache = {"k": k_, "v": v_}  # full-sequence kv = prefill-built cache
+    else:
+        pos = decode_positions  # (B,)
+        q, k_ = position_encode(cfg, q, k_, pos[:, None])
+        ck, cv = kv.update_kv(cache["k"], cache["v"], k_, v_, pos)
+        out = decode_attention(q, ck, cv, pos + 1, window=window)
+        new_cache = {"k": ck, "v": cv}
+    wo = p["wo"]
+    x = x + out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    return x, new_cache
+
+
+def block_forward(
+    cfg: ModelConfig,
+    kind: str,
+    p: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    cache: Optional[dict] = None,
+    decode_positions: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> tuple[torch.Tensor, dict]:
+    """Returns (x, built/updated cache).
+
+    In sequence mode (cache=None) the returned cache is the *built* decode
+    cache (the full-sequence k/v); in decode mode it is the updated cache.
+    """
+    if kind != ATTN:
+        require_ported(cfg)
+    x, new_cache = _attn_part(
+        cfg,
+        p["attn"],
+        x,
+        positions,
+        causal=causal,
+        window=None,
+        cache=cache,
+        decode_positions=decode_positions,
+    )
+    h = apply_norm(cfg.norm_kind, _norms(p["mlp"]), x)
+    x = x + mlp_forward(cfg, p["mlp"], h)
+    return x, new_cache
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    return tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model forward
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        require_ported(self.cfg)
+
+    # -- embedding ---------------------------------------------------------
+    def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens].to(torch_dtype(self.cfg.dtype))
+
+    def unembed(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        w = params["embed"].T if self.cfg.tie_embeddings else params["unembed"]
+        logits = (x @ w.to(x.dtype)).float()
+        return softcap(logits, self.cfg.logits_softcap)
+
+    # -- full-sequence forward (prefill) -------------------------------------
+    def _trunk(
+        self,
+        params: dict,
+        tokens: Optional[torch.Tensor],
+        inputs_embeds: Optional[torch.Tensor],
+        build_cache: bool,
+        cache_capacity: Optional[int],
+    ) -> tuple[torch.Tensor, Optional[dict]]:
+        """The final-normed hidden states and the built cache (or None)."""
+        cfg = self.cfg
+        if inputs_embeds is not None:
+            x = inputs_embeds.to(torch_dtype(cfg.dtype))
+        else:
+            x = self.embed(params, tokens)
+        s = x.shape[1]
+        positions = torch.arange(s, device=x.device)[None, :]
+        if cfg.rope_kind == "learned":
+            x = x + params["pos_embed"][:s].to(x.dtype)
+        built: list[list[dict]] = [[] for _ in cfg.pattern]
+        for c in range(cfg.cycles):
+            for j, kind in enumerate(cfg.pattern):
+                x, layer_cache = block_forward(
+                    cfg, kind, _layer(params["blocks"][j], c), x, positions, causal=True
+                )
+                if build_cache:
+                    built[j].append(layer_cache)
+        rem_built = []
+        for j, kind in enumerate(cfg.remainder):
+            x, layer_cache = block_forward(
+                cfg, kind, params["rem_blocks"][j], x, positions, causal=True
+            )
+            rem_built.append(layer_cache)
+        x = apply_norm(cfg.norm_kind, params["final_norm"], x)
+        cache = None
+        if build_cache:
+            cache = self._cache_from_built(built, rem_built, s, cache_capacity or s)
+        return x, cache
+
+    def forward(
+        self,
+        params: dict,
+        *,
+        tokens: Optional[torch.Tensor] = None,
+        inputs_embeds: Optional[torch.Tensor] = None,
+        encoder_embeds: Optional[torch.Tensor] = None,
+        build_cache: bool = False,
+        cache_capacity: Optional[int] = None,
+    ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+        """Returns (logits, cache_or_None, aux_loss).
+
+        ``encoder_embeds`` is ignored, as in the reference for decoder-only
+        configs (encoder-decoder configs raise at ``Model(cfg)``).
+        """
+        x, cache = self._trunk(params, tokens, inputs_embeds, build_cache, cache_capacity)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self.unembed(params, x), cache, aux
+
+    def _cache_from_built(
+        self, built: list[list[dict]], rem_built: list[dict], s: int, capacity: int
+    ) -> dict:
+        """Assemble a decode cache from prefill by-products.
+
+        The full-sequence k/v *is* the cache; it is grown to ``capacity``
+        (zero slots past ``s``) so decode at position s does not wrap onto
+        slot 0.  A capacity at or below ``s`` keeps length ``s``, as in the
+        reference.
+        """
+        cap = max(capacity, s)
+        cache: dict[str, Any] = {"scan": [], "rem": []}
+
+        def grow(layers: list[torch.Tensor]) -> torch.Tensor:
+            first = layers[0]
+            out = first.new_zeros((len(layers), first.shape[0], cap, *first.shape[2:]))
+            for i, a in enumerate(layers):
+                out[i, :, :s] = a
+            return out
+
+        for entries in built:
+            cache["scan"].append({n: grow([e[n] for e in entries]) for n in ("k", "v")})
+        for entry in rem_built:
+            cache["rem"].append({n: grow([entry[n]])[0] for n in ("k", "v")})
+        return cache
+
+    # -- decode step -----------------------------------------------------------
+    def decode_step(
+        self,
+        params: dict,
+        cache: dict,
+        tokens: torch.Tensor,
+        positions: torch.Tensor,
+    ) -> tuple[torch.Tensor, dict]:
+        """One-token decode.  tokens (B,1); positions (B,).
+
+        Updates ``cache`` in place (one k/v row per sequence and layer) and
+        returns it beside the logits (B,1,V) in f32.
+        """
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        if cfg.rope_kind == "learned":
+            x = x + params["pos_embed"][positions][:, None].to(x.dtype)
+        for c in range(cfg.cycles):
+            for j, kind in enumerate(cfg.pattern):
+                x, _ = block_forward(
+                    cfg,
+                    kind,
+                    _layer(params["blocks"][j], c),
+                    x,
+                    positions[:, None],
+                    cache=_layer(cache["scan"][j], c),
+                    decode_positions=positions,
+                )
+        for j, kind in enumerate(cfg.remainder):
+            x, _ = block_forward(
+                cfg,
+                kind,
+                params["rem_blocks"][j],
+                x,
+                positions[:, None],
+                cache=cache["rem"][j],
+                decode_positions=positions,
+            )
+        x = apply_norm(cfg.norm_kind, params["final_norm"], x)
+        return self.unembed(params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(cfg: ModelConfig, optimizer=None) -> Callable:
+    raise NotImplementedError(f"training is not ported yet (ROADMAP {UNPORTED['train']})")
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """(params, batch) → (last-position logits (B,1,V), cache).
+
+    Like the reference, it passes no ``cache_capacity``: the cache holds
+    exactly S slots, and decoding at position S would wrap onto slot 0; to
+    decode after a prefill, call ``Model.forward(build_cache=True,
+    cache_capacity=...)``.  Only the last position is unembedded: the
+    reference computes every position's logits and returns ``logits[:, -1:]``,
+    which are the same values (up to the unembedding matmul's summation
+    order).
+    """
+    model = Model(cfg)
+
+    def prefill_step(params, batch):
+        x, cache = model._trunk(
+            params, batch.get("tokens"), batch.get("inputs_embeds"), True, None
+        )
+        return model.unembed(params, x[:, -1:]), cache
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    model = Model(cfg)
+
+    def serve_step(params, cache, tokens, positions):
+        return model.decode_step(params, cache, tokens, positions)
+
+    return serve_step

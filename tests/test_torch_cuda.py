@@ -1,8 +1,12 @@
 """The port's CUDA kernels and engine on the card (marked ``gpu``).
 
-Each kernel is held bit-exact against its plain PyTorch version (integer
-outputs: no tolerance) at the engine's shapes, and a small Real Job 3 run
-on the card against the port's CPU engine.  Without a card every test here
+The routing kernels are held bit-exact against their plain PyTorch versions
+(integer outputs: no tolerance) at the engine's shapes, and a small Real
+Job 3 run on the card against the port's CPU engine.  The attention kernels
+are held against their plain versions at small shapes, in bf16 and f32, at
+``tests/test_kernels.py``'s tolerances (f32 3e-5; bf16 3e-2, which also
+covers the flash kernel's bf16 rounding of P before P·V), and one GLM-4-9B
+SMOKE decode step on the card against ``device="cpu"``.  Without a card every test here
 skips.  On the card: ``python -m pytest -m gpu tests/test_torch_cuda.py``
 (this file imports neither jax nor the reference package).
 """
@@ -15,12 +19,16 @@ import torch
 
 from repro_torch.kernels import (
     bucket_argsort,
+    decode_attention,
+    flash_attention,
     keygroup_partition,
     launch_counts,
     reset_launch_counts,
 )
 from repro_torch.kernels.keygroup_partition import fold_keys64
 from repro_torch.kernels.keygroup_partition.ref import keygroup_partition_ref
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.radix_sort.ref import bucket_argsort_ref
 
 pytestmark = pytest.mark.gpu
@@ -98,10 +106,87 @@ def test_engine_on_card_matches_cpu(cuda):
         for eng in engines:
             eng.tick()
     gpu, cpu = engines
-    assert all(c > 0 for c in launch_counts().values())
+    counts = launch_counts()
+    assert counts["keygroup_partition"] > 0 and counts["radix_sort"] > 0
     assert gpu.metrics.sink_outputs == cpu.metrics.sink_outputs
     assert [pickle.dumps(s) for _, s in gpu.store.items()] == [
         pickle.dumps(s) for _, s in cpu.store.items()
     ]
     assert np.array_equal(gpu.window.kg_arrivals, cpu.window.kg_arrivals)
     assert gpu.metrics.partition_kernel_batches == gpu.metrics.routed_batches
+
+
+ATTN_TOL = {torch.float32: dict(atol=3e-5, rtol=3e-5),
+            torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+
+
+def _close(out, ref, dtype):
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize(
+    "b,s,h,kv,hd,causal,window",
+    [(1, 256, 4, 2, 64, True, None), (2, 100, 8, 2, 16, True, None),
+     (1, 300, 4, 4, 32, False, None), (1, 512, 8, 2, 64, True, 128),
+     (2, 129, 32, 2, 128, True, None), (1, 200, 2, 1, 256, True, None),
+     (1, 64, 4, 2, 24, True, 7)],
+)
+def test_flash_kernel_matches_plain(cuda, b, s, h, kv, hd, causal, window, dtype):
+    g = torch.Generator().manual_seed(s + h + hd)
+    q, k, v = (torch.randn(b, s, n, hd, generator=g).to(dtype) for n in (h, kv, kv))
+    reset_launch_counts()
+    out = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1 and out.dtype == dtype
+    _close(out, attention_ref(q, k, v, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize(
+    "b,h,kv,hd,t",
+    [(3, 8, 2, 64, 512), (1, 4, 4, 32, 256), (2, 16, 2, 128, 512), (4, 32, 2, 128, 1000),
+     (2, 8, 2, 16, 64)],
+)
+def test_decode_kernel_matches_plain(cuda, b, h, kv, hd, t, dtype):
+    g = torch.Generator().manual_seed(t + h)
+    q = torch.randn(b, 1, h, hd, generator=g).to(dtype)
+    kc, vc = (torch.randn(b, t, kv, hd, generator=g).to(dtype) for _ in range(2))
+    lens = torch.randint(1, t + 1, (b,), generator=g, dtype=torch.int32)
+    lens[0] = 1
+    lens[-1] = t if b > 1 else lens[-1]
+    reset_launch_counts()
+    out = decode_attention(q.to(cuda), kc.to(cuda), vc.to(cuda), lens.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention"] == 1
+    _close(out, decode_attention_ref(q, kc, vc, lens), dtype)
+
+
+def test_glm4_smoke_decode_on_card_matches_cpu(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_params
+    from repro_torch.models.common import tree_map
+
+    cfg = get_config("glm4_9b", smoke=True)
+    params = init_params(cfg, 0, device="cpu")
+    model = Model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(0))
+    logits_c, cache_c, _ = model.forward(params, tokens=toks, build_cache=True,
+                                         cache_capacity=32)
+    params_g = tree_map(lambda a: a.to(cuda), params)
+    reset_launch_counts()
+    logits_g, cache_g, _ = model.forward(params_g, tokens=toks.to(cuda), build_cache=True,
+                                         cache_capacity=32)
+    assert launch_counts()["flash_attention"] == cfg.num_layers
+    np.testing.assert_allclose(logits_g.cpu().numpy(), logits_c.numpy(), atol=0.75, rtol=0.15)
+    nxt = torch.full((2, 1), 7)
+    pos = torch.full((2,), 12)
+    dec_c, _ = model.decode_step(params, cache_c, nxt, pos)
+    dec_g, _ = model.decode_step(params_g, cache_g, nxt.to(cuda), pos.to(cuda))
+    assert launch_counts()["decode_attention"] == cfg.num_layers
+    dec_g, dec_c = dec_g.cpu().numpy()[:, 0], dec_c.numpy()[:, 0]
+    np.testing.assert_allclose(dec_g, dec_c, atol=0.75, rtol=0.15)
+    top2 = np.sort(dec_c, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * np.abs(dec_g - dec_c).max()
+    assert np.array_equal(dec_g.argmax(-1)[clear], dec_c.argmax(-1)[clear])

@@ -36,6 +36,8 @@ from repro.kernels.radix_sort.radix_sort import bucket_argsort_pallas
 
 from repro_torch.kernels import (
     bucket_argsort,
+    decode_attention,
+    flash_attention,
     keygroup_partition,
     launch_counts,
     reset_launch_counts,
@@ -192,7 +194,11 @@ def test_cpu_tensors_never_count_launches():
     reset_launch_counts()
     keygroup_partition(torch.arange(10), 4)
     bucket_argsort(torch.arange(10), 10)
-    assert launch_counts() == {"keygroup_partition": 0, "radix_sort": 0}
+    q, kv = torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 1, 8)
+    flash_attention(q, kv, kv)
+    decode_attention(q[:, :1], kv, kv, torch.ones(1, dtype=torch.int32))
+    assert launch_counts() == {"keygroup_partition": 0, "radix_sort": 0,
+                               "flash_attention": 0, "decode_attention": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,201 @@
+"""The port's attention kernels' plain versions against the reference.
+
+``flash_attention`` and ``decode_attention`` in the port run their plain
+PyTorch versions (``ref.py``) on CPU tensors; those are held here against
+the reference's jnp oracles (``attention_ref``, ``decode_attention_ref``),
+its Pallas kernels in interpret mode and its layer functions
+(``layers.full_attention`` / ``layers.decode_attention``), over the shape
+sweeps of ``tests/test_kernels.py`` and at its tolerances (f32 3e-5, bf16
+3e-2).  The port's own layer functions (full, chunked, decode with and
+without a window) are held against the reference's the same way.
+
+Inputs are drawn with numpy and cast to bf16 on each side (both round to
+nearest even, so both sides see the same bits).  The CUDA kernels run only
+on the card: ``tests/test_torch_cuda.py`` holds them against these plain
+versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.decode_attention import decode_attention_pallas
+from repro.kernels.decode_attention.ref import decode_attention_ref as ref_decode_oracle
+from repro.kernels.flash_attention.flash_attention import flash_attention_pallas
+from repro.kernels.flash_attention.ref import attention_ref as ref_flash_oracle
+from repro.models import layers as ref_layers
+
+from repro_torch.kernels import (
+    decode_attention,
+    flash_attention,
+    launch_counts,
+    reset_launch_counts,
+)
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models import layers
+
+TOL = {
+    "float32": dict(atol=3e-5, rtol=3e-5),
+    "bfloat16": dict(atol=3e-2, rtol=3e-2),
+}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    return jnp.asarray(x, JNP[dtype]), torch.from_numpy(x).to(TORCH[dtype])
+
+
+def _np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _close(a, b, dtype):
+    np.testing.assert_allclose(_np(a), _np(b), **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [  # tests/test_kernels.py:58-66, plus GLM-4-9B's group size 16
+    (1, 256, 4, 2, 64, True, None, "float32"),
+    (2, 256, 4, 4, 32, True, None, "float32"),
+    (1, 512, 8, 2, 64, True, 128, "float32"),
+    (1, 256, 4, 1, 64, False, None, "float32"),
+    (1, 256, 8, 8, 128, True, None, "bfloat16"),
+    (2, 384, 6, 3, 64, True, None, "float32"),
+    (1, 256, 32, 2, 128, True, None, "bfloat16"),
+]
+
+
+def _qkv(b, s, h, kv, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, h, hd), dtype=np.float32)
+    k = rng.standard_normal((b, s, kv, hd), dtype=np.float32)
+    v = rng.standard_normal((b, s, kv, hd), dtype=np.float32)
+    return _pair(q, dtype), _pair(k, dtype), _pair(v, dtype)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,dtype", FLASH_CASES)
+def test_flash_plain_matches_reference(b, s, h, kv, hd, causal, window, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(b, s, h, kv, hd, dtype, seed=s + h)
+    out = attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == TORCH[dtype] and out.shape == (b, s, h, hd)
+    _close(out, ref_flash_oracle(jq, jk, jv, causal=causal, window=window), dtype)
+    bq = 128 if s % 128 == 0 else 64
+    pallas = flash_attention_pallas(
+        jq, jk, jv, causal=causal, window=window, block_q=bq, block_kv=bq, interpret=True
+    )
+    _close(out, pallas, dtype)
+    _close(out, ref_layers.full_attention(jq, jk, jv, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,dtype", FLASH_CASES[:4])
+def test_flash_wrapper_on_cpu_is_plain(b, s, h, kv, hd, causal, window, dtype):
+    (_, tq), (_, tk), (_, tv) = _qkv(b, s, h, kv, hd, dtype, seed=1)
+    reset_launch_counts()
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert torch.equal(out, attention_ref(tq, tk, tv, causal=causal, window=window))
+    assert launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 96), (False, None)])
+def test_port_full_attention_matches_reference(causal, window, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(2, 200, 8, 2, 32, dtype, seed=7)
+    out = layers.full_attention(tq, tk, tv, causal=causal, window=window)
+    ref = ref_layers.full_attention(jq, jk, jv, causal=causal, window=window)
+    _close(out, ref, dtype)
+    # And the layer's CPU route (the reference's full-versus-chunked choice).
+    _close(layers.attention(tq, tk, tv, causal=causal, window=window), ref, dtype)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_port_chunked_attention_matches_reference(window):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 256, 4, 2, 32, "float32", seed=3)
+    out = layers.chunked_attention(tq, tk, tv, window=window, chunk_q=64, chunk_kv=64)
+    ref = ref_layers.chunked_attention(jq, jk, jv, window=window, chunk_q=64, chunk_kv=64)
+    _close(out, ref, "float32")
+    _close(out, ref_flash_oracle(jq, jk, jv, window=window), "float32")
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [  # tests/test_kernels.py:112-120, plus GLM-4-9B's group size 16
+    (3, 8, 2, 64, 512, "float32"),
+    (1, 4, 4, 32, 256, "float32"),
+    (2, 16, 2, 128, 512, "bfloat16"),
+    (1, 2, 1, 64, 1024, "float32"),
+    (4, 32, 2, 128, 256, "bfloat16"),
+]
+
+
+def _decode_inputs(b, h, kv, hd, t, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, 1, h, hd), dtype=np.float32)
+    kc = rng.standard_normal((b, t, kv, hd), dtype=np.float32)
+    vc = rng.standard_normal((b, t, kv, hd), dtype=np.float32)
+    # kv_len in [1, T], as tests/test_kernels.py:122 draws it; 1 and T
+    # included where there are rows enough.  (kv_len 0 is not compared:
+    # the Pallas kernel and the jnp oracle disagree there.)
+    lens = rng.integers(1, t + 1, size=b).astype(np.int32)
+    lens[0] = 1
+    if b > 1:
+        lens[-1] = t
+    return _pair(q, dtype), _pair(kc, dtype), _pair(vc, dtype), lens
+
+
+@pytest.mark.parametrize("b,h,kv,hd,t,dtype", DECODE_CASES)
+def test_decode_plain_matches_reference(b, h, kv, hd, t, dtype):
+    (jq, tq), (jk, tk), (jv, tv), lens = _decode_inputs(b, h, kv, hd, t, dtype, seed=t + h)
+    out = decode_attention_ref(tq, tk, tv, torch.from_numpy(lens))
+    assert out.dtype == TORCH[dtype] and out.shape == (b, 1, h, hd)
+    jl = jnp.asarray(lens)
+    _close(out, ref_decode_oracle(jq, jk, jv, jl), dtype)
+    _close(out, decode_attention_pallas(jq, jk, jv, jl, block_kv=128, interpret=True), dtype)
+    _close(out, ref_layers.decode_attention(jq, jk, jv, jl), dtype)
+
+
+@pytest.mark.parametrize("b,h,kv,hd,t,dtype", DECODE_CASES[:2])
+def test_decode_wrapper_on_cpu_is_plain(b, h, kv, hd, t, dtype):
+    (_, tq), (_, tk), (_, tv), lens = _decode_inputs(b, h, kv, hd, t, dtype, seed=5)
+    lens = torch.from_numpy(lens)
+    reset_launch_counts()
+    out = decode_attention(tq, tk, tv, lens)
+    assert torch.equal(out, decode_attention_ref(tq, tk, tv, lens))
+    assert launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 64])
+def test_port_decode_layer_matches_reference(window, dtype):
+    (jq, tq), (jk, tk), (jv, tv), lens = _decode_inputs(3, 8, 2, 32, 256, dtype, seed=11)
+    out = layers.decode_attention(tq, tk, tv, torch.from_numpy(lens), window=window)
+    ref = ref_layers.decode_attention(jq, jk, jv, jnp.asarray(lens), window=window)
+    _close(out, ref, dtype)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 8, 4, 32)
+    k = torch.zeros(1, 8, 2, 32)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.to(torch.bfloat16), k)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros(1, 8, 3, 32), torch.zeros(1, 8, 3, 32))
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 8, 4, 12), torch.zeros(1, 8, 2, 12),
+                        torch.zeros(1, 8, 2, 12))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k, window=0)
+    with pytest.raises(ValueError):
+        decode_attention(q, k, k, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        decode_attention(q[:, :1], k, k, torch.ones(1))

@@ -3,8 +3,9 @@ neither jax nor anything of the reference package ``repro``.
 
 Pinned two ways: statically, over every import statement (top level or
 nested) in the port's sources and the chip smoke script; and at run time,
-by importing the package and running a small Real Job 3 in a subprocess
-where ``import jax`` and ``import repro`` fail.
+by importing the package, running a small Real Job 3 and one SMOKE decode
+tick of the serve loop in a subprocess where ``import jax`` and
+``import repro`` fail.
 """
 
 import ast
@@ -60,6 +61,7 @@ import numpy as np
 import repro_torch
 import repro_torch.core, repro_torch.data, repro_torch.engine, repro_torch.kernels
 import repro_torch.solver
+import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
 from repro_torch.data import StreamSpec, airline_stream, real_job_3
 from repro_torch.engine import Engine
 eng = Engine(real_job_3(keygroups_per_op=8), 3, service_rate=1e9, device="cpu")
@@ -81,6 +83,16 @@ except RuntimeError as e:
 else:
     import torch
     assert torch.cuda.is_available()
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import DecodeWorker
+from repro_torch.models import init_params
+cfg = get_config("glm4_9b", smoke=True)
+worker = DecodeWorker(0, cfg, init_params(cfg, 0, device="cpu"), 2, device="cpu")
+worker.occupant[0], worker.positions[0], worker.tokens[0, 0] = 0, 5, 1
+n, secs = worker.decode_tick()
+assert n == 1 and secs > 0 and worker.positions[0] == 6
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.metrics.sink_tuples)
 """
 
