@@ -12,10 +12,13 @@ error or mismatch:
    all started together) and print the build time;
 2. hold each CUDA kernel against its plain PyTorch version on the card, at
    the main paths' shapes -- the routing kernels bit-exact (integer outputs),
-   the attention kernels in bf16 at atol = rtol = 3e-2 (tests/test_kernels.py's
-   bf16 tolerance) and, per output row, within 1e-2 of the plain version's
-   norm; a planted fault (a dropped KV tile or split) must fail that check --
-   and time kernel, plain version and the library yardstick with CUDA events;
+   the attention kernels and moe_gemm in bf16 at atol = rtol = 3e-2
+   (tests/test_kernels.py's bf16 tolerance) and, per output row, within 1e-2
+   of the plain version's norm, rglru_scan at atol = rtol = 1e-5 (the
+   reference's); a planted fault per kernel (a dropped KV tile or split, the
+   scan's carry reset halfway, a skipped K tile) must fail that check -- and
+   time kernel, plain version and the library yardstick with CUDA events,
+   flash also at RecurrentGemma's head_dim 256;
 3. the engine path at full size: Real Job 3 (airline → extract → sumdelay →
    routedelay) with 1000 key groups per operator on 16 nodes, one 2^20-tuple
    airline batch per tick for 20 ticks, every routed hop through both
@@ -35,7 +38,8 @@ error or mismatch:
    (40 flash-attention launches) and 16 tokens decoded greedily (40
    decode-attention launches per step); in one more bf16 prefill and one
    more decode step, each layer's kernel output is held against its plain
-   version (flash) or the flash kernel (decode) on the same activations;
+   version on the same activations (flash: ``attention_ref``; decode:
+   ``decode_attention_ref`` on the same cache and kv_len);
    the first decoded token's logits are held against the last row of a
    full forward over the prompt plus that token (in float32 on two layers
    and two prompts: see ``check_prefill_decode`` for why not in bf16);
@@ -44,16 +48,32 @@ error or mismatch:
    must complete, memory stay within the card, and every applied migration
    install exactly the cache rows it extracted, leaving the destination's
    other slots unchanged;
+7. phases 5-6 for RecurrentGemma-2B at full width (26 layers, d_model
+   2,560, vocab 256,000; context 4,096): 8 prompts of 2,048 tokens fill the
+   2,048-slot LOCAL_ATTN ring (18 rglru_scan and 8 flash launches), 16
+   decode steps run on the wrapped ring (8 decode launches each, no scan);
+   rglru_scan is also held against its plain version in each RG-LRU layer
+   of the extra prefill; the f32 check runs the first cycle (rglru, rglru,
+   local_attn); the serve loop's migrations move ring, ``h`` and ``conv``
+   rows;
+8. phases 5-6 for Moonlight-16B-A3B at full width and depth (48 layers, 64
+   experts top-6, d_model 2,048, vocab 163,840; context 2,560): 4 prompts
+   of 2,048 tokens and 8 decode steps, 3 moe_gemm launches per layer and
+   step; moe_gemm is held against its plain version in each of the 144
+   expert products of the extra prefill and of the extra decode step; the
+   serve loop runs 3 workers x 8 slots at context 1,024 (0.4 GB of cache
+   per slot); the weights of the earlier models are freed first;
 
 then one JSON line listing the kernels with their launches on the paths
-that run them (phases 3-4 for routing, 5-6 for attention), times, bounds
-and yardsticks; the card's name and power limit (``nvidia-smi``); and, last,
-the line ``{"ok": true, "device": {...}}``.  It exits nonzero without CUDA,
-and outside a checkout that holds ``src/repro_torch``.
+that run them (phases 3-4 for routing, 5-8 for the LM kernels), times,
+bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
+and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
+without CUDA, and outside a checkout that holds ``src/repro_torch``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pickle
@@ -87,21 +107,35 @@ ATTN_TOL = dict(atol=3e-2, rtol=3e-2)  # tests/test_kernels.py:47-50, bf16
 # On unit-randn inputs attention's outputs have std ~sqrt(e/n) (~0.04 at
 # n = 2048 keys), the size of ATTN_TOL itself, so a kernel that drops a
 # KV tile or split passes it.  Each output row (b, position, head) is also
-# held to |out - ref|_2 <= ATTN_ROW_RTOL * |ref|_2: bf16 rounding of P and
+# held to |out - ref|_2 <= ROW_RTOL * |ref|_2: bf16 rounding of P and
 # of the output gives ~3e-3, a dropped 16-key split at n = 2064 ~4e-2 or more.
-ATTN_ROW_RTOL = 1e-2
+ROW_RTOL = 1e-2
 # The prefill/decode consistency check's tolerance: tests/test_models.py:105-106
 # (bf16 parameters, different contraction orders), here at full width.
 LM_TOL = dict(atol=0.75, rtol=0.15)
-# Depth of the end-to-end check (full width, the first layers of the same
-# weights): see check_prefill_decode.
-CHECK_LAYERS = 2
+# Depth of the end-to-end check (full width, the first pattern cycles of the
+# same weights): see check_prefill_decode.
+CHECK_CYCLES = 2
+
+# Phase 7: RecurrentGemma-2B at full width, context cut to 4,096.  Its
+# prompts fill the 2,048-slot LOCAL_ATTN ring, so every decode step runs on
+# a wrapped ring.
+RG_ARCH, RG_CONTEXT = "recurrentgemma_2b", 4096
+RG_BATCH, RG_PROMPT, RG_DECODE_STEPS = 8, 2048, 16
+RG_CHECK_CYCLES = 1  # (rglru, rglru, local_attn): an attention layer included
+# Phase 8: Moonlight-16B-A3B (the repo's moonshot_v1_16b_a3b) at full width
+# and depth, context cut to 2,560 (4.0 GB of cache beside 56.1 GB of
+# weights); its serve loop (SERVE's 3 workers x 8 slots) at context 1,024.
+MOE_ARCH, MOE_CONTEXT, MOE_SERVE_CONTEXT = "moonshot_v1_16b_a3b", 2560, 1024
+MOE_BATCH, MOE_PROMPT, MOE_DECODE_STEPS = 4, 2048, 8
+SCAN_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_kernels.py:149
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the 32-bit
 # non-tensor-core rate, which bounds the routing kernels' integer lanes, and
 # the dense bf16 tensor-core rate, which bounds attention's matrix products.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 FLOAT_RTOL = 1e-12
 
@@ -155,25 +189,25 @@ def row_rel_err(out, ref) -> float:
     return float((num / ref.norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def attn_check(what: str, out, ref, tol=ATTN_TOL) -> tuple[float, float]:
-    """Hold an attention output to ``tol`` elementwise and to ATTN_ROW_RTOL
-    per row; returns (max |out - ref|, largest row error)."""
+def row_check(what: str, out, ref, tol=ATTN_TOL) -> tuple[float, float]:
+    """Hold a kernel output to ``tol`` elementwise and to ROW_RTOL per row
+    (of its last axis); returns (max |out - ref|, largest row error)."""
     err, bad = max_err(out, ref, tol)
     rel = row_rel_err(out, ref)
     check(bad == 0, f"{what}: {bad} elements outside atol={tol['atol']:.4g} "
           f"rtol={tol['rtol']:.4g} (max err {err})")
-    check(rel <= ATTN_ROW_RTOL, f"{what}: a row is {rel:.3e} of its norm away "
-          f"(limit {ATTN_ROW_RTOL})")
+    check(rel <= ROW_RTOL, f"{what}: a row is {rel:.3e} of its norm away "
+          f"(limit {ROW_RTOL})")
     return err, rel
 
 
 def planted_fault(what: str, faulty, ref) -> tuple[float, int]:
-    """The row check must reject ``faulty``, a kernel output with keys
+    """The row check must reject ``faulty``, a kernel output with terms
     missing; returns the row error it saw and the elements that ATTN_TOL
     alone would have flagged."""
     rel = row_rel_err(faulty, ref)
-    check(rel > ATTN_ROW_RTOL, f"the attention check passes a planted fault ({what}): "
-          f"row error {rel:.3e} <= {ATTN_ROW_RTOL}")
+    check(rel > ROW_RTOL, f"the row check passes a planted fault ({what}): "
+          f"row error {rel:.3e} <= {ROW_RTOL}")
     return rel, max_err(faulty, ref)[1]
 
 
@@ -326,7 +360,7 @@ def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, cap=LM_CONTEX
         q, k, v = randn(b, seq, heads, hd), randn(b, seq, kv, hd), randn(b, seq, kv, hd)
         got = flash_attention(q, k, v, causal=causal, window=win)
         torch.cuda.synchronize()
-        err, rel = attn_check(f"flash_attention (B={b}, window={win}) against its plain version",
+        err, rel = row_check(f"flash_attention (B={b}, window={win}) against its plain version",
                               got, attention_ref(q, k, v, causal=causal, window=win))
         cases.append(dict(shape=f"q ({b},{seq},{heads},{hd}) k/v ({b},{seq},{kv},{hd}) bf16 "
                           f"causal window={win}", max_abs_err=err, max_row_rel_err=rel))
@@ -374,12 +408,12 @@ def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, cap=LM_CONTEX
                         dtype=torch.int32, device=dev)
     got = decode_attention(q, kc, vc, lens)
     torch.cuda.synchronize()
-    err, rel = attn_check("decode_attention against its plain version", got,
+    err, rel = row_check("decode_attention against its plain version", got,
                           decode_attention_ref(q, kc, vc, lens))
     live_len = seq + LM_DECODE_STEPS
     steady = torch.full((batch,), live_len, dtype=torch.int32, device=dev)
     steady_ref = decode_attention_ref(q, kc, vc, steady)
-    err2, rel2 = attn_check(f"decode_attention (kv_len {live_len})",
+    err2, rel2 = row_check(f"decode_attention (kv_len {live_len})",
                             decode_attention(q, kc, vc, steady), steady_ref)
     # Planted fault: the last 16 keys missing, as if the last split were
     # dropped from the merge.
@@ -389,7 +423,7 @@ def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, cap=LM_CONTEX
     # first kv_len keys without a causal mask computes what decode does.
     pair = flash_attention(q, kc[:, :live_len].contiguous(), vc[:, :live_len].contiguous(),
                            causal=False)
-    err3, rel3 = attn_check("flash_attention (causal=False) against decode_attention on the "
+    err3, rel3 = row_check("flash_attention (causal=False) against decode_attention on the "
                             "same inputs", pair, decode_attention(q, kc, vc, steady))
     # Timing rotates over copies of the caches (their live rows, 2 x 8.5 MB
     # each, more than the 50 MB L2 cache in all), so each timed launch reads
@@ -425,6 +459,154 @@ def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, cap=LM_CONTEX
         bound_by=b_by,
         shape=f"q ({batch},1,{heads},{hd}) caches ({batch},{cap},{kv},{hd}) bf16 "
               f"kv_len {seq + LM_DECODE_STEPS}",
+    )
+    return out
+
+
+def flash_hd256_case(dev, reps: int = 5) -> dict:
+    """The flash kernel at RecurrentGemma's prefill shape: B=8, S=2048,
+    H=10 over KV=1, hd=256, window 2,048, bf16 -- the CUDA-core path (the
+    tensor-core path takes hd <= 128).  With S <= window the window masks
+    nothing, so SDPA with ``is_causal`` is the same function."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    b, s, h, kv, hd, win = RG_BATCH, RG_PROMPT, 10, 1, 256, 2048
+    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev).to(torch.bfloat16)
+               for n in (h, kv, kv))
+    got = flash_attention(q, k, v, causal=True, window=win)
+    torch.cuda.synchronize()
+    err, rel = row_check("flash_attention (hd 256, window 2048) against its plain version", got,
+                         attention_ref(q, k, v, causal=True, window=win))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = cuda_ms(lambda i: flash_attention(q, k, v, causal=True, window=win), reps)
+    plain = cuda_ms(lambda i: attention_ref(q, k, v, causal=True, window=win), 2)
+    lib = cuda_ms(lambda i: sdpa(qt, kt, vt, is_causal=True), reps)
+    flops = 4 * b * h * hd * (s * (s + 1) // 2)
+    b_ms, b_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), flops, BF16_FLOPS_PER_S)
+    log(f"[kernel] flash_attention B={b} S={s} H={h} KV={kv} hd={hd} window={win} (CUDA cores): "
+        f"{ms:.4f} ms (plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s), max_abs_err={err} max_row_rel_err={rel:.3e}")
+    return dict(shape=f"q ({b},{s},{h},{hd}) k/v ({b},{s},{kv},{hd}) bf16 causal window={win}",
+                max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
+    """``rglru_scan`` and ``moe_gemm`` against their plain versions on the
+    card at the main paths' shapes, each with a planted fault that its check
+    must reject, and their times.
+
+    * rglru_scan at RecurrentGemma's prefill, (8, 2048, 2560) f32, with a ~
+      U(0.2, 0.999), b ~ 0.1 N(0,1), h0 ~ N(0,1) (tests/test_kernels.py:
+      143-146), at atol = rtol = 1e-5 (the reference's; the kernel rounds as
+      the plain version does, so it should agree exactly).  Planted fault:
+      the carry reset to 0 at S/2.  No single library call computes it.
+    * moe_gemm at every shape Moonlight's path gives it, in bf16: the rows
+      of the prefill (4 prompts x capacity 240 = 960), of a decode step (4
+      sequences x capacity 1) and of a serve tick (SERVE's 8 slots), each
+      for the gate/up product (E, rows, 2048) x (E, 2048, 1408) and the
+      down product (E, rows, 1408) x (E, 1408, 2048); x ~ N(0,1), w ~ 0.05
+      N(0,1), at ATTN_TOL and ROW_RTOL per output row.  Planted fault: the
+      last 32-deep slice of the contraction (one K tile) skipped.  Library
+      yardstick: ``torch.bmm``.
+    """
+    import torch
+
+    from repro_torch.kernels import moe_gemm, rglru_scan
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.models.moe import capacity
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    out = {}
+
+    b, s, w = RG_BATCH, RG_PROMPT, lm_config(RG_ARCH).lru_width
+    a = torch.empty(b, s, w, device=dev).uniform_(0.2, 0.999, generator=gen)
+    bb = 0.1 * torch.randn(b, s, w, generator=gen, device=dev)
+    h0 = torch.randn(b, w, generator=gen, device=dev)
+    got = rglru_scan(a, bb, h0)
+    ref = rglru_scan_ref(a, bb, h0)
+    torch.cuda.synchronize()
+    err, bad = max_err(got, ref, SCAN_TOL)
+    check(bad == 0, f"rglru_scan: {bad} elements outside atol=rtol=1e-5 (max err {err})")
+    half = s // 2
+    faulty = torch.cat([
+        rglru_scan(a[:, :half].contiguous(), bb[:, :half].contiguous(), h0),
+        rglru_scan(a[:, half:].contiguous(), bb[:, half:].contiguous(), torch.zeros_like(h0)),
+    ], dim=1)
+    fault_err, fault_bad = max_err(faulty, ref, SCAN_TOL)
+    check(fault_bad > 0, "the scan check passes a planted fault (carry reset at S/2)")
+    del faulty
+    ms = cuda_ms(lambda i: rglru_scan(a, bb, h0), 5 * reps)
+    plain = cuda_ms(lambda i: rglru_scan_ref(a, bb, h0), 3)
+    b_ms, b_by = bound_ms(4 * (3 * a.numel() + h0.numel()), 2 * a.numel(), F32_FLOPS_PER_S)
+    log(f"[kernel] rglru_scan B={b} S={s} W={w} f32: {ms:.4f} ms (plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by}; {4 * 3 * a.numel() / ms / 1e9:.3f} TB/s), max_abs_err={err}; "
+        f"planted fault (carry reset at S/2): max err {fault_err}, {fault_bad} elements outside "
+        f"SCAN_TOL")
+    out["rglru_scan"] = dict(
+        route="cuda",
+        source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan/rglru_scan.py:45",
+        max_abs_err=err,
+        planted_fault_elements=fault_bad,
+        ms=ms,
+        plain_ms=plain,
+        bound_ms=b_ms,
+        bound_by=b_by,
+        library_ms=None,
+        shape=f"a, b ({b},{s},{w}) h0 ({b},{w}) f32",
+    )
+    del a, bb, h0, got, ref
+
+    moe_cfg = lm_config(MOE_ARCH)
+    e = moe_cfg.moe.num_experts
+    cases = []
+    for label, rows, d, f in (
+        (what, rows, d, f)
+        for what, rows in (("prefill", MOE_BATCH * capacity(moe_cfg, MOE_PROMPT)),
+                           ("decode", MOE_BATCH * capacity(moe_cfg, 1)),
+                           ("serve decode", SERVE["slots"] * capacity(moe_cfg, 1)))
+        for d, f in ((moe_cfg.d_model, moe_cfg.d_ff), (moe_cfg.d_ff, moe_cfg.d_model))
+    ):
+        label = f"{label}, {'gate/up' if d == moe_cfg.d_model else 'down'}"
+        x = torch.randn(e, rows, d, generator=gen, device=dev).to(torch.bfloat16)
+        wt = (0.05 * torch.randn(e, d, f, generator=gen, device=dev)).to(torch.bfloat16)
+        got = moe_gemm(x, wt)
+        torch.cuda.synchronize()
+        ref = moe_gemm_ref(x, wt)
+        err, rel = row_check(f"moe_gemm ({label}) against its plain version", got, ref)
+        fault, fault_bad = planted_fault(
+            "moe_gemm without its last 32-deep slice of the contraction",
+            moe_gemm(x[..., : d - 32].contiguous(), wt[:, : d - 32].contiguous()), ref)
+        ms = cuda_ms(lambda i: moe_gemm(x, wt), reps)
+        plain = cuda_ms(lambda i: moe_gemm_ref(x, wt), max(2, reps // 5))
+        lib = cuda_ms(lambda i: torch.bmm(x, wt), reps)
+        flops = 2 * e * rows * d * f
+        b_ms, b_by = bound_ms(2 * (x.numel() + wt.numel() + e * rows * f), flops,
+                              BF16_FLOPS_PER_S)
+        log(f"[kernel] moe_gemm {label} ({e},{rows},{d})x({e},{d},{f}) bf16: {ms:.4f} ms (plain "
+            f"{plain:.4f} ms, torch.bmm {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+            f"{flops / ms / 1e9:.1f} TFLOP/s), max_abs_err={err} max_row_rel_err={rel:.3e}; "
+            f"planted fault (last K tile skipped): row error {fault:.3e}, {fault_bad} elements "
+            f"outside ATTN_TOL")
+        cases.append(dict(shape=f"x ({e},{rows},{d}) w ({e},{d},{f}) bf16 ({label})",
+                          max_abs_err=err, max_row_rel_err=rel, planted_fault_row_rel_err=fault,
+                          ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+        del x, wt, got, ref
+    main = {k: v for k, v in cases[0].items() if k != "shape"}
+    main.update(max_abs_err=max(c["max_abs_err"] for c in cases),
+                max_row_rel_err=max(c["max_row_rel_err"] for c in cases))
+    out["moe_gemm"] = dict(
+        route="cuda",
+        source="src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
+        replaces="src/repro/kernels/moe_gemm/moe_gemm.py:49",
+        cases=cases,
+        **main,
     )
     return out
 
@@ -655,7 +837,7 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
     return {"migrations": total_migrations}
 
 
-# ------------------------------------------------------------------ phases 5-6
+# ------------------------------------------------------------------ phases 5-8
 def lm_config(arch: str = LM_ARCH, context: int = LM_CONTEXT, *, smoke: bool = False):
     """The LM config at full width (or SMOKE, for a rehearsal on the CPU),
     ``max_seq_len`` cut to the context."""
@@ -664,6 +846,26 @@ def lm_config(arch: str = LM_ARCH, context: int = LM_CONTEXT, *, smoke: bool = F
     from repro_torch.configs import get_config
 
     return dataclasses.replace(get_config(arch, smoke=smoke), max_seq_len=context)
+
+
+def layer_counts(cfg) -> dict[str, int]:
+    """Layers of each kernel-bearing kind: attention (ATTN, ATTN_MOE,
+    LOCAL_ATTN), RG-LRU and MoE."""
+    from repro_torch.configs.base import ATTN, ATTN_MOE, LOCAL_ATTN, RGLRU
+
+    kinds = list(cfg.pattern) * cfg.cycles + list(cfg.remainder)
+    return dict(attn=sum(k in (ATTN, ATTN_MOE, LOCAL_ATTN) for k in kinds),
+                rglru=kinds.count(RGLRU), moe=kinds.count(ATTN_MOE))
+
+
+def expected_launches(cfg, steps: int) -> dict[str, int]:
+    """Launches of one prefill and ``steps`` decode steps: flash once per
+    attention layer and rglru_scan once per RG-LRU layer in the prefill;
+    decode attention once per attention layer and step; moe_gemm three
+    times (gate, up, down) per MoE layer in the prefill and in each step."""
+    n = layer_counts(cfg)
+    return {"flash_attention": n["attn"], "decode_attention": n["attn"] * steps,
+            "rglru_scan": n["rglru"], "moe_gemm": 3 * n["moe"] * (1 + steps)}
 
 
 def prefill_decode(dev, cfg, params, *, batch: int, prompt: int, steps: int,
@@ -726,12 +928,12 @@ def _paired(errs: list):
     the same attention on the same activations.  The bf16 tolerance is for
     unit-scale values and these activations are not (|v| reaches ~100 at
     this initialization), so atol scales with the largest value the outputs
-    average over; the row check (ATTN_ROW_RTOL) is scale-free."""
+    average over; the row check (ROW_RTOL) is scale-free."""
 
     def hold(what, out, ref, values):
         scale = float(values.abs().max())
         tol = dict(atol=ATTN_TOL["atol"] * scale, rtol=ATTN_TOL["rtol"])
-        errs.append(attn_check(what, out, ref, tol) + (scale,))
+        errs.append(row_check(what, out, ref, tol) + (scale,))
 
     return hold
 
@@ -742,85 +944,154 @@ def _paired_summary(errs: list, layers: int, what: str) -> tuple[float, float, f
             max(v for _, _, v in errs))
 
 
+def _paired_gemm(errs: list, gemm, where: str):
+    """``gemm`` (the routed moe_gemm) with each call's output held against
+    ``moe_gemm_ref`` on the same dispatched activations.  Real activations
+    are not unit-scale: atol scales with the outputs (the row check is
+    scale-free)."""
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    def paired(x, w):
+        out = gemm(x, w)
+        ref = moe_gemm_ref(x, w)
+        scale = float(ref.float().abs().max())
+        tol = dict(atol=ATTN_TOL["atol"] * scale, rtol=ATTN_TOL["rtol"])
+        errs.append(row_check(f"moe_gemm against its plain version inside the {where}",
+                              out, ref, tol) + (scale,))
+        return out
+
+    return paired
+
+
+def _gemm_summary(errs: list, moe_layers: int, prefix: str) -> tuple[dict, str]:
+    """The JSON keys and the log text of a run's moe_gemm pairings (none
+    for a model without MoE layers)."""
+    check(len(errs) == 3 * moe_layers, f"paired moe_gemm {len(errs)} times, not "
+          f"{3 * moe_layers}")
+    if not errs:
+        return {}, ""
+    worst, rel, vmax = _paired_summary(errs, 3 * moe_layers, "moe_gemm")
+    return ({f"{prefix}gemm_products_paired": len(errs), f"{prefix}gemm_paired_max_err": worst,
+             f"{prefix}gemm_paired_max_row_rel_err": rel,
+             f"{prefix}gemm_paired_max_abs_out": vmax},
+            f"; moe_gemm vs plain version in each of {len(errs)} expert products: max err "
+            f"{worst} (max |out| {vmax}), max row error {rel:.3e}")
+
+
 def check_kernels_in_prefill(cfg, params, run: dict) -> dict:
     """One more full-depth bf16 prefill of the main path's prompts in which
-    every layer's flash-kernel output is held against the plain version
-    (``attention_ref``, f32 math) on the same activations: the bf16
-    tensor-core kernel under the causal mask, at the main path's shapes.
-    Not counted as main-path launches."""
+    every kernel launch of the prefill is held against its plain version on
+    the same activations: flash (``attention_ref``, f32 math) in each
+    attention layer, rglru_scan (``rglru_scan_ref``, at SCAN_TOL) in each
+    RG-LRU layer, and moe_gemm (``moe_gemm_ref``) in each of the three expert
+    products of each MoE layer, on the dispatched activations.  Not counted
+    as main-path launches."""
     import torch
 
+    import repro_torch.models.moe as moe_mod
+    import repro_torch.models.rglru as rglru_mod
     import repro_torch.models.transformer as transformer
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.models import Model
 
-    routed = transformer.attention
-    errs = []
-    hold = _paired(errs)
+    routed = transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm
+    attn_errs, scan_errs, gemm_errs = [], [], []
+    hold = _paired(attn_errs)
 
-    def paired(q, k, v, *, causal=True, window=None, **kw):
-        out = routed(q, k, v, causal=causal, window=window, **kw)
+    def paired_attention(q, k, v, *, causal=True, window=None, **kw):
+        out = routed[0](q, k, v, causal=causal, window=window, **kw)
         # One sequence at a time keeps the plain version's f32 scores small.
         ref = torch.cat([attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal,
                                        window=window) for i in range(q.shape[0])])
         hold("flash kernel against its plain version inside the prefill", out, ref, v)
         return out
 
-    transformer.attention = paired
+    def paired_scan(a, b, h0):
+        out = routed[1](a, b, h0)
+        err, bad = max_err(out, rglru_scan_ref(a, b, h0), SCAN_TOL)
+        check(bad == 0, f"rglru_scan inside the prefill: {bad} elements outside SCAN_TOL "
+              f"(max err {err})")
+        scan_errs.append(err)
+        return out
+
+    transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm = (
+        paired_attention, paired_scan, _paired_gemm(gemm_errs, routed[2], "prefill"))
     try:
         logits, _, _ = Model(cfg).forward(params, tokens=run["tokens"])
     finally:
-        transformer.attention = routed
+        transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm = routed
     del logits
     torch.cuda.synchronize()
-    worst, rel, vmax = _paired_summary(errs, cfg.num_layers, "prefill")
-    log(f"[lm] flash kernel vs plain version in each of {len(errs)} layers of a bf16 prefill "
-        f"{tuple(run['tokens'].shape)}: max err {worst} (max |v| {vmax}), max row error "
-        f"{rel:.3e}")
-    return dict(prefill_layers_paired=len(errs), prefill_paired_max_err=worst,
-                prefill_paired_max_row_rel_err=rel, prefill_paired_max_abs_v=vmax)
+    n = layer_counts(cfg)
+    worst, rel, vmax = _paired_summary(attn_errs, n["attn"], "prefill")
+    res = dict(prefill_layers_paired=len(attn_errs), prefill_paired_max_err=worst,
+               prefill_paired_max_row_rel_err=rel, prefill_paired_max_abs_v=vmax)
+    msg = (f"[lm] {cfg.name}: in a bf16 prefill {tuple(run['tokens'].shape)}, flash kernel vs "
+           f"plain version in each of {len(attn_errs)} attention layers: max err {worst} (max "
+           f"|v| {vmax}), max row error {rel:.3e}")
+    check(len(scan_errs) == n["rglru"], f"paired rglru_scan {len(scan_errs)} times, not "
+          f"{n['rglru']}")
+    if scan_errs:
+        res.update(scan_layers_paired=len(scan_errs), scan_paired_max_err=max(scan_errs))
+        msg += (f"; rglru_scan vs plain version in each of {len(scan_errs)} RG-LRU layers: "
+                f"max err {max(scan_errs)}")
+    gemm_res, gemm_msg = _gemm_summary(gemm_errs, n["moe"], "")
+    res.update(gemm_res)
+    log(msg + gemm_msg)
+    return res
 
 
 def check_kernels_in_decode(cfg, params, run: dict) -> dict:
-    """One more full-depth bf16 decode step in which every layer's decode
-    attention is also computed by the flash kernel (no causal mask, over the
-    cache's live keys): the two kernels on the same real activations.  Not
-    counted as main-path launches."""
+    """One more full-depth bf16 decode step in which every kernel launch of
+    the step is held against its plain version on the same activations:
+    decode attention (``decode_attention_ref``, f32 math, on the same q,
+    cache or ring and kv_len) in each attention layer, and moe_gemm
+    (``moe_gemm_ref``) in each of the three expert products of each MoE
+    layer.  Not counted as main-path launches."""
     import torch
 
+    import repro_torch.models.moe as moe_mod
     import repro_torch.models.transformer as transformer
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.models import Model
 
-    plain = transformer.decode_attention
-    errs = []
+    routed = transformer.decode_attention, moe_mod.moe_gemm
+    errs, gemm_errs = [], []
     hold = _paired(errs)
 
     def paired(q, ck, cv, kv_len, *, window=None):
-        out = plain(q, ck, cv, kv_len, window=window)
-        n = int(kv_len[0])
-        check(bool((kv_len == n).all()), "paired check needs one kv_len")
-        values = cv[:, :n].contiguous()
-        ref = flash_attention(q, ck[:, :n].contiguous(), values, causal=False)
-        hold("decode and flash kernels inside the decode step", out, ref, values)
+        check(window is None, "a decode step passed a window (the ring needs none)")
+        out = routed[0](q, ck, cv, kv_len)
+        ref = decode_attention_ref(q, ck, cv, kv_len)
+        # Slots past kv_len hold zeros or live ring keys: cv's max bounds
+        # the values the outputs average over either way.
+        hold("decode kernel against its plain version inside the decode step", out, ref, cv)
         return out
 
     tok = run["last_tok"]
     pos = torch.full((tok.shape[0],), run["next_pos"], dtype=torch.int64, device=tok.device)
-    transformer.decode_attention = paired
+    transformer.decode_attention, moe_mod.moe_gemm = (
+        paired, _paired_gemm(gemm_errs, routed[1], "decode step"))
     try:
         Model(cfg).decode_step(params, run["cache"], tok[:, None], pos)
     finally:
-        transformer.decode_attention = plain
+        transformer.decode_attention, moe_mod.moe_gemm = routed
     torch.cuda.synchronize()
-    worst, rel, vmax = _paired_summary(errs, cfg.num_layers, "decode")
-    log(f"[lm] decode vs flash kernel in each of {len(errs)} layers of a decode step at "
-        f"kv_len {int(pos[0]) + 1}: max err {worst} (max |v| {vmax}), max row error {rel:.3e}")
-    return dict(layers_paired=len(errs), paired_max_err=worst, paired_max_row_rel_err=rel,
-                paired_max_abs_v=vmax)
+    n = layer_counts(cfg)
+    worst, rel, vmax = _paired_summary(errs, n["attn"], "decode")
+    res = dict(layers_paired=len(errs), paired_max_err=worst, paired_max_row_rel_err=rel,
+               paired_max_abs_v=vmax)
+    gemm_res, gemm_msg = _gemm_summary(gemm_errs, n["moe"], "decode_")
+    res.update(gemm_res)
+    log(f"[lm] {cfg.name}: in a decode step at position {int(pos[0])}, decode kernel vs plain "
+        f"version in each of {len(errs)} attention layers: max err {worst} (max |v| {vmax}), "
+        f"max row error {rel:.3e}{gemm_msg}")
+    return res
 
 
-def check_prefill_decode(cfg, params, run: dict, *, context: int, rows: int = 2) -> dict:
+def check_prefill_decode(cfg, params, run: dict, *, context: int, cycles: int,
+                         rows: int = 2) -> dict:
     """The first decoded token's logits against the last row of a full
     forward over the prompt plus that token (tests/test_models.py:83-110 at
     full width): prefill through the flash kernel, decode through the decode
@@ -835,13 +1106,20 @@ def check_prefill_decode(cfg, params, run: dict, *, context: int, rows: int = 2)
     by layer until the logits disagree, in bf16 and in f32 alike (on the CPU,
     at 512 tokens, f32 against f64: max |diff| 0.009 after 2 layers, 0.92
     after 4, 2.9 after 12 at 64 tokens).  So the gated check runs in float32
-    on the first ``CHECK_LAYERS`` layers of the same weights, at full width,
-    on the first ``rows`` prompts; the full-depth bf16 comparison is
-    measured and printed, not gated.  In float32 the flash wrapper runs its
-    CUDA-core path, not the bf16 tensor-core path of the main prefill: that
-    one is held at full depth by check_kernels_in_prefill (against the plain
-    version on the prefill's own activations), and the decode kernel by
-    check_kernels_in_decode (against the flash kernel on identical inputs).
+    on the first ``cycles`` pattern cycles of the same weights (no remainder
+    blocks), at full width, on the first ``rows`` prompts; the full-depth
+    bf16 comparison is measured and printed, not gated.  In float32 the
+    flash wrapper and moe_gemm run their CUDA-core paths, not the bf16
+    tensor-core paths of the main prefill: those are held at full depth by
+    check_kernels_in_prefill (against the plain versions on the prefill's
+    own activations), and the decode kernel by check_kernels_in_decode
+    (against the flash kernel on identical inputs).
+
+    A MoE layer's capacity depends on the sequence: a decode step routes its
+    one token with capacity 1, while the full forward puts it last in every
+    expert bucket of the prompt, where it is dropped if the bucket is full.
+    The comparison holds only for rows whose last token no checked layer
+    dropped: those are counted, compared, and at least one must remain.
     """
     import dataclasses
 
@@ -870,33 +1148,74 @@ def check_prefill_decode(cfg, params, run: dict, *, context: int, rows: int = 2)
     # bf16 at full depth, for the record: the main path's first decode.
     b_diff, b_bad, _, b_agree = compare(run["first_logits"][:rows], last_row(Model(cfg), params))
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32", cycles=CHECK_LAYERS)
-    p32 = tree_map(lambda a: a.float(), params)
-    p32["blocks"] = tree_map(lambda a: a[:CHECK_LAYERS], p32["blocks"])
+    cfg32 = dataclasses.replace(cfg, dtype="float32", cycles=cycles, remainder=())
+    # Cut to depth before the cast: Moonlight's 56 GB of bf16 would not fit twice.
+    p32 = {k: v for k, v in params.items() if k not in ("blocks", "rem_blocks")}
+    p32["blocks"] = tree_map(lambda a: a[:cycles], params["blocks"])
+    p32["rem_blocks"] = []
+    p32 = tree_map(lambda a: a.float(), p32)
     model = Model(cfg32)
     logits, cache, _ = model.forward(p32, tokens=tokens, build_cache=True, cache_capacity=context)
     del logits
     dec, _ = model.decode_step(p32, cache, nxt, pos)
     del cache
     got = dec[:, 0].float()
-    ref = last_row(model, p32)
+    dropped = [torch.zeros(rows, dtype=torch.int64, device=got.device)]
+    with watch_last_token_drops(cfg32, dropped):
+        ref = last_row(model, p32)
     del p32
+    kept = sum(dropped) == 0  # rows whose last token no checked layer dropped
+    check(bool(kept.any()), "the full forward dropped the last token from a full expert "
+          "bucket in every row: no row's logits can match the decode's")
+    got, ref = got[kept], ref[kept]
     max_diff, bad, clear, agree = compare(got, ref)
     check(bad == 0, f"f32 decode logits disagree with the full forward: {bad} of "
           f"{got.numel()} outside atol={LM_TOL['atol']} rtol={LM_TOL['rtol']} "
           f"(max diff {max_diff})")
     check(bool(agree[clear].all()), "argmax differs on a row with a clear top-2 margin")
     res = dict(consistency_max_diff_f32=max_diff, logit_absmax=float(ref.abs().max()),
-               argmax_rows_clear=int(clear.sum()), argmax_rows_agree=int(agree.sum()),
-               bf16_full_depth_max_diff=b_diff, bf16_full_depth_outside_tol=b_bad,
+               rows_compared=int(kept.sum()), argmax_rows_clear=int(clear.sum()),
+               argmax_rows_agree=int(agree.sum()), bf16_full_depth_max_diff=b_diff,
+               bf16_full_depth_outside_tol=b_bad,
                bf16_full_depth_argmax_rows_agree=int(b_agree.sum()))
-    log(f"[lm] decode vs full forward, f32, {CHECK_LAYERS} layers, {rows} rows: max diff "
+    n = res["rows_compared"]
+    skipped = (f" (in {rows - n} the full forward's capacity dropped the last token)"
+               if n < rows else "")
+    log(f"[lm] {cfg.name}: decode vs full forward, f32, {cfg32.num_layers} layers, {n} of "
+        f"{rows} rows{skipped}: max diff "
         f"{max_diff:.6f} (|logit| max {res['logit_absmax']:.4f}); argmax agrees on "
-        f"{res['argmax_rows_agree']}/{rows} rows, {res['argmax_rows_clear']} with a clear "
-        f"margin.  bf16, {cfg.num_layers} layers (not gated): max diff {b_diff:.4f}, {b_bad} "
-        f"of {got.numel()} outside the tolerance, argmax agrees on "
-        f"{res['bf16_full_depth_argmax_rows_agree']}/{rows}")
+        f"{res['argmax_rows_agree']}/{n} rows, {res['argmax_rows_clear']} with a clear "
+        f"margin.  bf16, {cfg.num_layers} layers, {rows} rows (not gated): max diff "
+        f"{b_diff:.4f}, {b_bad} of {rows * cfg.vocab_size} outside the tolerance, argmax "
+        f"agrees on {res['bf16_full_depth_argmax_rows_agree']}/{rows}")
     return res
+
+
+@contextlib.contextmanager
+def watch_last_token_drops(cfg, dropped: list):
+    """While active, every MoE layer appends to ``dropped`` how many of each
+    row's last token's expert choices overflow their bucket, (B,): the last
+    token sits last in each bucket, so it is dropped where the bucket's
+    count exceeds the capacity."""
+    import torch
+
+    import repro_torch.models.transformer as transformer
+    from repro_torch.models.moe import capacity
+
+    routed = transformer.moe_forward
+
+    def watched(cfg_, p, x, **kw):
+        chosen = (x @ p["router"]).float().topk(cfg_.moe.top_k, dim=-1).indices  # (B,S,k)
+        counts = torch.nn.functional.one_hot(chosen, cfg_.moe.num_experts).sum(dim=(1, 2))
+        last = counts.gather(1, chosen[:, -1])  # bucket sizes of the last token's experts
+        dropped.append((last > capacity(cfg_, x.shape[1])).sum(dim=1))
+        return routed(cfg_, p, x, **kw)
+
+    transformer.moe_forward = watched
+    try:
+        yield
+    finally:
+        transformer.moe_forward = routed
 
 
 def profile_decode(cfg, params, run: dict, steps: int = 3) -> dict:
@@ -945,19 +1264,31 @@ def profile_decode(cfg, params, run: dict, steps: int = 3) -> dict:
 
 def run_serve(dev, cfg, params, settings: dict) -> dict:
     """The port's serve loop at full width, with every migration checked:
-    the installed rows equal the extracted ones and the destination's other
-    slots keep their contents (per-slot float64 checksums)."""
+    the installed rows of every cache leaf equal the extracted ones and the
+    destination's other slots keep their contents (per-slot float64
+    checksums over every leaf, ``scan`` and ``rem``, whatever its rank)."""
     import torch
 
     from repro_torch.launch.serve import DecodeWorker, serve_loop
 
     checked = []
+    leaf_kinds = set()
+
+    def leaves(cache):
+        """(name, leaf, slot axis) of every cache leaf: axis 1 of the stacked
+        ``scan`` leaves, axis 0 of the remainder blocks' ``rem`` leaves, at
+        any rank (k/v rings and caches, RG-LRU ``h`` and ``conv``)."""
+        return ([(n, a, 1) for e in cache["scan"] for n, a in e.items()]
+                + [(n, a, 0) for e in cache["rem"] for n, a in e.items()])
 
     def slot_sums(cache) -> torch.Tensor:
-        # (slots,) float64 checksum per (leaf, slot); scan leaves are
-        # (cycles, slots, cap, KV, hd): the slot is axis 1.
-        return torch.stack([a.double().sum(dim=(0, 2, 3, 4))
-                            for e in cache["scan"] for a in e.values()])
+        # (leaves, slots) float64 checksums over every axis but the slot's,
+        # one slot at a time: a whole leaf cast to float64 would add 6.4 GB
+        # (Moonlight's) to the serve loop's peak memory.
+        return torch.stack([
+            torch.stack([a.select(axis, s).sum(dtype=torch.float64)
+                         for s in range(a.shape[axis])])
+            for _, a, axis in leaves(cache)])
 
     class CheckedWorker(DecodeWorker):
         def extract(self, slot):
@@ -974,10 +1305,12 @@ def run_serve(dev, cfg, params, settings: dict) -> dict:
                   "a migration installed other rows than it extracted")
             check(torch.equal(after[:, others], before[:, others]),
                   "a migration changed the destination's other slots")
-            for e, rows in zip(self.cache["scan"], blob["cache"]["scan"]):
-                for n, a in e.items():
-                    check(torch.equal(a[:, slot], rows[n][:, 0]),
-                          "installed rows differ from the extracted ones")
+            moved = leaves(blob["cache"])
+            check(len(moved) == len(leaves(self.cache)), "a migration left cache leaves behind")
+            for (name, a, axis), (_, rows, _) in zip(leaves(self.cache), moved):
+                check(torch.equal(a.select(axis, slot), rows.select(axis, 0)),
+                      "installed rows differ from the extracted ones")
+                leaf_kinds.add(f"{name}{tuple(a.shape)}")
             checked.append((slot, sid))
 
     torch.cuda.reset_peak_memory_stats()
@@ -1004,13 +1337,80 @@ def run_serve(dev, cfg, params, settings: dict) -> dict:
         p99_ticks=stats.percentile(99),
         max_workers=stats.max_workers,
         peak_mem_gb=peak / 1e9,
+        migrated_leaves=sorted(leaf_kinds),
     )
     log(f"[serve] {cfg.name} L={cfg.num_layers} d={cfg.d_model}: {stats.ticks} ticks in {wall:.3f} s, "
         f"{stats.completed} completed, p50={res['p50_ticks']:.1f} p99={res['p99_ticks']:.1f} "
         f"ticks, {stats.migrations} migrations (rows checked), {stats.decode_tokens} decode "
         f"tokens in {stats.decode_seconds:.3f} s = {res['decode_tokens_per_s']:.1f} tokens/s, "
-        f"workers {stats.max_workers}, peak memory {res['peak_mem_gb']:.2f} GB")
+        f"workers {stats.max_workers}, peak memory {res['peak_mem_gb']:.2f} GB; leaves moved "
+        f"and checked: {res['migrated_leaves']}")
     return res
+
+
+#: The LM phases: GLM-4-9B (5-6), RecurrentGemma-2B (7), Moonlight (8).
+LM_RUNS = (
+    dict(arch=LM_ARCH, context=LM_CONTEXT, batch=LM_BATCH, prompt=LM_PROMPT,
+         steps=LM_DECODE_STEPS, check_cycles=CHECK_CYCLES, serve_context=LM_CONTEXT,
+         serve=SERVE),
+    dict(arch=RG_ARCH, context=RG_CONTEXT, batch=RG_BATCH, prompt=RG_PROMPT,
+         steps=RG_DECODE_STEPS, check_cycles=RG_CHECK_CYCLES, serve_context=RG_CONTEXT,
+         serve=SERVE),
+    dict(arch=MOE_ARCH, context=MOE_CONTEXT, batch=MOE_BATCH, prompt=MOE_PROMPT,
+         steps=MOE_DECODE_STEPS, check_cycles=CHECK_CYCLES, serve_context=MOE_SERVE_CONTEXT,
+         serve=SERVE),
+)
+
+
+def run_lm(dev, drive, spec: dict) -> tuple[dict, dict]:
+    """One model at full width on the card: random bf16 weights from a
+    seeded generator, then prefill + greedy decode with exact launch counts
+    (the path the JSON line's launches come from), the per-layer kernel
+    pairings, a decode profile, the f32 prefill/decode consistency check,
+    and the serve loop (launches counted too).  Frees the weights after."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    cfg = lm_config(spec["arch"], spec["context"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"[lm] {cfg.name}: L={cfg.num_layers} d={cfg.d_model} V={cfg.vocab_size}, parameters "
+        f"initialized on the card in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    want = expected_launches(cfg, spec["steps"])
+    run, counts = drive(tuple(k for k, n in want.items() if n), prefill_decode, dev, cfg,
+                        params, batch=spec["batch"], prompt=spec["prompt"],
+                        steps=spec["steps"], context=spec["context"])
+    for name, n in want.items():
+        check(counts[name] == n, f"{cfg.name}: prefill + {spec['steps']} decode steps launched "
+              f"{name} {counts[name]} times, not {n}")
+    log(f"[lm] {cfg.name}: launches of one prefill and {spec['steps']} decode steps {want}")
+    lm = {k: v for k, v in run.items()
+          if k != "next_pos" and not isinstance(v, (torch.Tensor, dict))}
+    lm["launches"] = want
+    lm.update(check_kernels_in_decode(cfg, params, run))
+    lm["profile"] = profile_decode(cfg, params, run)
+    del run["cache"]
+    lm.update(check_kernels_in_prefill(cfg, params, run))
+    lm.update(check_prefill_decode(cfg, params, run, context=spec["context"],
+                                   cycles=spec["check_cycles"]))
+    del run
+    lm["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lm] {cfg.name}: peak device memory {lm['peak_mem_gb']:.2f} GB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f} GB")
+    decode = ("decode_attention",) + (("moe_gemm",) if cfg.moe is not None else ())
+    served, serve_counts = drive(decode, run_serve, dev,
+                                 lm_config(spec["arch"], spec["serve_context"]), params,
+                                 spec["serve"])
+    check(serve_counts["flash_attention"] == 0 and serve_counts["rglru_scan"] == 0,
+          "the serve loop launched a prefill kernel")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lm, served
 
 
 def gpu_name_and_limit() -> str:
@@ -1067,6 +1467,8 @@ def main() -> int:
 
         kernels = routing_kernel_checks(dev)
         kernels.update(attention_kernel_checks(dev))
+        kernels["flash_attention"]["cases"].append(flash_hd256_case(dev))
+        kernels.update(scan_and_expert_kernel_checks(dev))
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1087,34 +1489,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        from repro_torch.models import init_params
-
-        cfg = lm_config()
-        t0 = time.perf_counter()
-        params = init_params(cfg, SEED, device=dev)
-        torch.cuda.synchronize()
-        log(f"[lm] {cfg.name}: {cfg.param_count()} parameters initialized on the card in "
-            f"{time.perf_counter() - t0:.2f} s ({torch.cuda.memory_allocated() / 1e9:.2f} GB)")
-        run, lm_counts = drive(
-            ("flash_attention", "decode_attention"), prefill_decode, dev, cfg, params,
-            batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_DECODE_STEPS, context=LM_CONTEXT,
-        )
-        check(lm_counts["flash_attention"] == cfg.num_layers,
-              f"prefill launched flash_attention {lm_counts['flash_attention']} times, "
-              f"not once per layer ({cfg.num_layers})")
-        check(lm_counts["decode_attention"] == cfg.num_layers * LM_DECODE_STEPS,
-              f"decode launched decode_attention {lm_counts['decode_attention']} times, "
-              f"not {cfg.num_layers} per step x {LM_DECODE_STEPS}")
-        lm = {k: v for k, v in run.items()
-              if k != "next_pos" and not isinstance(v, (torch.Tensor, dict))}
-        lm.update(check_kernels_in_decode(cfg, params, run))
-        lm["profile"] = profile_decode(cfg, params, run)
-        del run["cache"]
-        lm.update(check_kernels_in_prefill(cfg, params, run))
-        lm.update(check_prefill_decode(cfg, params, run, context=LM_CONTEXT))
-        del run
-        served, serve_counts = drive(("decode_attention",), run_serve, dev, cfg, params, SERVE)
-        check(serve_counts["flash_attention"] == 0, "the serve loop launched flash_attention")
+        lm, served = {}, {}
+        for spec in LM_RUNS:
+            lm[spec["arch"]], served[spec["arch"]] = run_lm(dev, drive, spec)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

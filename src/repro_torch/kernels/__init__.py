@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels: the engine's routing and the LM's attention.
+"""Hand-written CUDA kernels: the engine's routing and the LM's attention,
+recurrence and expert products.
 
 Each kernel package holds
 
@@ -11,16 +12,19 @@ Each kernel package holds
 
 ``keygroup_partition`` (hash partition + arrival histogram), ``radix_sort``
 (stable bucketed argsort of the routing composite), ``flash_attention``
-(causal / windowed GQA prefill attention) and ``decode_attention``
-(one-token attention over a KV cache) replace the reference package's
-Pallas kernels of the same names.  Code shared by several sources lives in
-``csrc/*.cuh`` here.
+(causal / windowed GQA prefill attention), ``decode_attention`` (one-token
+attention over a KV cache), ``rglru_scan`` (the RG-LRU linear recurrence)
+and ``moe_gemm`` (the grouped expert matmul) replace the reference
+package's Pallas kernels of the same names.  Code shared by several sources
+lives in ``csrc/*.cuh`` here.
 """
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.keygroup_partition import keygroup_partition
+from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.radix_sort import bucket_argsort
+from repro_torch.kernels.rglru_scan import rglru_scan
 
 #: Wrapper name → wrapper, for launch accounting.
 KERNELS = {
@@ -28,6 +32,8 @@ KERNELS = {
     "radix_sort": bucket_argsort,
     "flash_attention": flash_attention,
     "decode_attention": decode_attention,
+    "rglru_scan": rglru_scan,
+    "moe_gemm": moe_gemm,
 }
 
 
@@ -41,4 +47,5 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = ["KERNELS", "bucket_argsort", "decode_attention", "flash_attention",
-           "keygroup_partition", "launch_counts", "reset_launch_counts"]
+           "keygroup_partition", "launch_counts", "moe_gemm", "reset_launch_counts",
+           "rglru_scan"]

@@ -31,6 +31,8 @@ SOURCES = {
     "radix_sort": _KERNELS_DIR / "radix_sort" / "csrc" / "radix_sort.cu",
     "flash_attention": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
     "decode_attention": _KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu",
+    "rglru_scan": _KERNELS_DIR / "rglru_scan" / "csrc" / "rglru_scan.cu",
+    "moe_gemm": _KERNELS_DIR / "moe_gemm" / "csrc" / "moe_gemm.cu",
 }
 
 #: Headers shared between sources (``kernels/csrc/*.cuh``); part of every

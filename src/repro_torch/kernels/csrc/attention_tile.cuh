@@ -26,6 +26,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace attn {
 
 constexpr int kTileThreads = 256;
@@ -33,17 +35,8 @@ constexpr int kTileKeys = 64;  // the softmax pass gives each lane 2 keys of a t
 constexpr int kMaxAcc = 16;
 constexpr int kScoreIlp = 4;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using kern::from_f;
+using kern::to_f;
 
 // 16 bytes of T from global memory, widened to f32.
 template <typename T>

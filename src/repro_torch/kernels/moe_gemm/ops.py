@@ -1,0 +1,71 @@
+"""The grouped expert matmul: the CUDA kernel's wrapper.
+
+``moe_gemm(x, w)`` takes x (E,C,d) and w (E,d,f), contiguous, both bf16 or
+both f32, and returns (E,C,f) in x's dtype with f32 accumulation.  Any C,
+d and f are taken (the kernel masks ragged edges).  A CUDA tensor launches
+``csrc/moe_gemm.cu`` on the current stream; a CPU tensor takes the plain
+version in :mod:`.ref`.  Nothing falls back: a launch that fails raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    lib = _build.load("moe_gemm")
+    fn = lib.moe_gemm_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise on inputs the kernel does not take."""
+    if not isinstance(x, torch.Tensor) or not isinstance(w, torch.Tensor):
+        raise TypeError("x and w must be torch.Tensors")
+    if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must share a dtype in (bfloat16, float32); got {x.dtype}, "
+                        f"{w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    if x.dim() != 3 or w.dim() != 3 or w.shape[:2] != (x.shape[0], x.shape[2]):
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are not (E,C,d) and (E,d,f)")
+
+
+def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check(x, w)
+    dev = x.device
+    if dev.type == "cpu":
+        return moe_gemm_ref(x, w)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("x and w must be contiguous")
+    e, c, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((e, c, f), dtype=x.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(
+            lib.moe_gemm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
+                                DTYPE_CODES[x.dtype], stream),
+            "moe_gemm",
+        )
+    moe_gemm.launches += 1
+    return out
+
+
+#: Kernel launches since the last reset.
+moe_gemm.launches = 0

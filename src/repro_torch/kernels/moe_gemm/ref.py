@@ -1,0 +1,16 @@
+"""Plain PyTorch version of the grouped expert matmul, the counterpart of
+the reference's ``moe_gemm_ref``: ``einsum("ecd,edf->ecf")`` in float32,
+cast to x's dtype.
+
+The CPU path of the port's wrapper, and what the CUDA kernel is held
+against on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E,C,d) x (E,d,f) -> (E,C,f), accumulated in float32."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

@@ -12,17 +12,19 @@ worker (decode replica).  The controller runs Algorithm 1 every SPL:
   queue depth; retired workers drain via the MILP (Lemmas 1–2).
 
 Real model decode runs per worker per tick via ``make_serve_step``, on the
-card through the flash-decode kernel.  :func:`serve_loop` takes the config,
+card through the flash-decode kernel (and, for MoE configs, the grouped
+expert matmul).  :func:`serve_loop` takes the config,
 parameters and settings, so a caller can run it at full width; ``main()``
 serves the reduced (SMOKE) config as the reference's ``main()`` does.
 
 A migration moves the sequence's own rows: along the **batch** axis, which
 is axis 1 of the stacked ``scan`` cache leaves ``(cycles, batch, cap, KV,
-hd)`` and axis 0 of the ``rem`` leaves.  (The reference's ``extract`` /
+hd)`` and axis 0 of the ``rem`` leaves, whatever their rank (a LOCAL_ATTN
+ring, an RG-LRU block's ``h`` and ``conv``).  (The reference's ``extract`` /
 ``install`` slice axis 0 of the stacked leaves, the layer axis; the port
 does what the reference's docstring says instead.)
 
-Usage:
+Usage (any ported arch: glm4_9b, recurrentgemma_2b, moonshot_v1_16b_a3b, ...):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --device cpu
 """
 

@@ -4,7 +4,11 @@ Cache layout mirrors the parameter layout: one stacked entry per pattern
 position (leading dim = cycles), plus unstacked entries for remainder blocks
 and, for enc-dec models, a per-decoder-layer cross-attention cache.  So a
 ``scan`` leaf of an attention block is ``(cycles, batch, cap, KV, hd)``: the
-batch (sequence slot) is axis 1, not axis 0.
+batch (sequence slot) is axis 1, not axis 0.  A LOCAL_ATTN leaf is a ring of
+``min(local_window, capacity)`` slots (token t in slot t % w, written by
+:func:`update_kv`'s ``positions % cap``); an RGLRU block keeps its state
+``h`` ``(batch, W)`` in float32 and its conv buffer ``conv`` ``(batch, 3,
+W)`` of raw inputs, oldest first, updated in place by the block.
 
 ``init_cache`` materializes zeros for serving; the sharded ShapeDtypeStruct
 form and the logical axes wait for the mesh tooling (ROADMAP queue 1,

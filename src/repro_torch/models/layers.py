@@ -240,9 +240,9 @@ def decode_attention(
     if q.is_cuda:
         if window is not None:
             raise NotImplementedError(
-                "windowed decode (LOCAL_ATTN) has no CUDA kernel yet: the TPU "
-                "decode kernel takes no window; see ROADMAP queue 1, item 10 "
-                "(RecurrentGemma serving with windowed decode)"
+                "windowed decode over a linear cache has no CUDA kernel: the decode "
+                "kernel, like the TPU one, takes no window.  The model decodes "
+                "LOCAL_ATTN on its ring cache, which needs none"
             )
         return decode_kernel(q, k_cache, v_cache, kv_len)
     return full_attention(

@@ -5,10 +5,19 @@ Parameters and caches keep the reference's tree layout: dicts whose
 compare like with like.  Inside, a plain Python loop over layers takes the
 place of ``lax.scan``; remat does not apply to inference.
 
-The ATTN block kind runs (every dense config: GLM-4, Llama-3.2,
-Mistral-NeMo, Gemma, the Qwen2-VL backbone with M-RoPE).  The other kinds,
+The ATTN (every dense config: GLM-4, Llama-3.2, Mistral-NeMo, Gemma, the
+Qwen2-VL backbone with M-RoPE), ATTN_MOE (DBRX, Moonlight), RGLRU and
+LOCAL_ATTN (RecurrentGemma) block kinds run.  The xLSTM kinds,
 encoder-decoder models and training raise ``NotImplementedError`` naming
 their ROADMAP item.
+
+A LOCAL_ATTN cache is a ring of w = min(local_window, capacity) slots,
+token t in slot t % w, and decodes with ``kv_len = min(pos + 1, w)`` and no
+window mask: the ring holds exactly the last w tokens (RoPE is already
+applied to k, and softmax does not depend on the keys' order).  The
+reference masks the ring by slot index against absolute positions and
+slices a wrong-sized ring from prompts shorter than w; the port departs
+from it there (ROADMAP queue 3).
 
 Step builders:
 
@@ -53,12 +62,11 @@ from repro_torch.models.layers import (
     position_encode,
     qkv_project,
 )
+from repro_torch.models.moe import moe_forward, moe_specs
+from repro_torch.models.rglru import rglru_block, rglru_specs
 
 #: Block kinds and model families not ported yet → their ROADMAP item.
 UNPORTED = {
-    RGLRU: "queue 1, item 10a (RecurrentGemma serving: rglru_scan, windowed decode)",
-    LOCAL_ATTN: "queue 1, item 10a (RecurrentGemma serving: rglru_scan, windowed decode)",
-    ATTN_MOE: "queue 1, item 10b (MoE serving: moe_gemm)",
     MLSTM: "queue 1, item 10d (xLSTM and Whisper)",
     SLSTM: "queue 1, item 10d (xLSTM and Whisper)",
     "encdec": "queue 1, item 10d (xLSTM and Whisper)",
@@ -69,10 +77,10 @@ UNPORTED = {
 def require_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot run yet."""
     for kind in (*cfg.pattern, *cfg.remainder):
-        if kind != ATTN:
+        if kind in UNPORTED:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet (ROADMAP "
-                f"{UNPORTED.get(kind, 'queue 1, item 10')})"
+                f"{UNPORTED[kind]})"
             )
     if cfg.is_encdec:
         raise NotImplementedError(
@@ -86,9 +94,14 @@ def require_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_specs(cfg: ModelConfig) -> dict:
-    """An ATTN block's specs (the only kind ported; see ``require_ported``)."""
-    return {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+def _block_specs(cfg: ModelConfig, kind: str) -> dict:
+    if kind in (ATTN, LOCAL_ATTN):
+        return {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+    if kind == ATTN_MOE:
+        return {"attn": attn_specs(cfg), "moe": moe_specs(cfg)}
+    if kind == RGLRU:
+        return {"rglru": rglru_specs(cfg), "mlp": mlp_specs(cfg)}
+    raise ValueError(kind)
 
 
 def _stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
@@ -113,16 +126,16 @@ def param_specs(cfg: ModelConfig) -> dict:
         specs["unembed"] = ParamSpec((d, v), ("embed_nofsdp", "vocab"))
     if cfg.rope_kind == "learned":
         specs["pos_embed"] = ParamSpec((cfg.max_seq_len, d), (None, "embed"))
-    for _ in cfg.pattern:
+    for kind in cfg.pattern:
         specs["blocks"].append(
             tree_map(
                 lambda s: _stack_spec(s, cfg.cycles),
-                _block_specs(cfg),
+                _block_specs(cfg, kind),
                 is_leaf=lambda x: isinstance(x, ParamSpec),
             )
         )
-    for _ in cfg.remainder:
-        specs["rem_blocks"].append(_block_specs(cfg))
+    for kind in cfg.remainder:
+        specs["rem_blocks"].append(_block_specs(cfg, kind))
     return specs
 
 
@@ -167,7 +180,10 @@ def _attn_part(
         pos = decode_positions  # (B,)
         q, k_ = position_encode(cfg, q, k_, pos[:, None])
         ck, cv = kv.update_kv(cache["k"], cache["v"], k_, v_, pos)
-        out = decode_attention(q, ck, cv, pos + 1, window=window)
+        if window is None:
+            out = decode_attention(q, ck, cv, pos + 1)
+        else:  # the ring holds the last min(pos + 1, w) tokens: no mask needed
+            out = decode_attention(q, ck, cv, torch.clamp(pos + 1, max=ck.shape[1]))
         new_cache = {"k": ck, "v": cv}
     wo = p["wo"]
     x = x + out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
@@ -184,27 +200,46 @@ def block_forward(
     cache: Optional[dict] = None,
     decode_positions: Optional[torch.Tensor] = None,
     causal: bool = True,
-) -> tuple[torch.Tensor, dict]:
-    """Returns (x, built/updated cache).
+) -> tuple[torch.Tensor, dict, torch.Tensor]:
+    """Returns (x, built/updated cache, aux_loss).
 
     In sequence mode (cache=None) the returned cache is the *built* decode
-    cache (the full-sequence k/v); in decode mode it is the updated cache.
+    cache (the full-sequence k/v for attention kinds, the final state for
+    RGLRU); in decode mode it is the cache, updated in place.  ``aux_loss``
+    is the MoE router's z-loss term (0 for the other kinds, and in decode).
     """
-    if kind != ATTN:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == RGLRU:
+        x, new_cache = rglru_block(cfg, p["rglru"], x, cache=cache)
+    elif kind in (ATTN, ATTN_MOE, LOCAL_ATTN):
+        x, new_cache = _attn_part(
+            cfg,
+            p["attn"],
+            x,
+            positions,
+            causal=causal,
+            window=cfg.local_window if kind == LOCAL_ATTN else None,
+            cache=cache,
+            decode_positions=decode_positions,
+        )
+    else:
         require_ported(cfg)
-    x, new_cache = _attn_part(
-        cfg,
-        p["attn"],
-        x,
-        positions,
-        causal=causal,
-        window=None,
-        cache=cache,
-        decode_positions=decode_positions,
-    )
-    h = apply_norm(cfg.norm_kind, _norms(p["mlp"]), x)
-    x = x + mlp_forward(cfg, p["mlp"], h)
-    return x, new_cache
+        raise ValueError(kind)
+    if kind == ATTN_MOE:
+        h = apply_norm(cfg.norm_kind, _norms(p["moe"]), x)
+        if cache is None:
+            moe_out, stats = moe_forward(cfg, p["moe"], h, return_router_stats=True)
+            # Router z-loss-style aux kept tiny, as in the reference.
+            aux = aux + 1e-3 * torch.mean(
+                torch.square(torch.logsumexp(stats["router_logits"], dim=-1))
+            )
+        else:  # decode: the aux is dropped, so no stats
+            moe_out = moe_forward(cfg, p["moe"], h)
+        x = x + moe_out
+    else:
+        h = apply_norm(cfg.norm_kind, _norms(p["mlp"]), x)
+        x = x + mlp_forward(cfg, p["mlp"], h)
+    return x, new_cache, aux
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -241,8 +276,9 @@ class Model:
         inputs_embeds: Optional[torch.Tensor],
         build_cache: bool,
         cache_capacity: Optional[int],
-    ) -> tuple[torch.Tensor, Optional[dict]]:
-        """The final-normed hidden states and the built cache (or None)."""
+    ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+        """The final-normed hidden states, the built cache (or None) and the
+        summed aux loss."""
         cfg = self.cfg
         if inputs_embeds is not None:
             x = inputs_embeds.to(torch_dtype(cfg.dtype))
@@ -252,25 +288,28 @@ class Model:
         positions = torch.arange(s, device=x.device)[None, :]
         if cfg.rope_kind == "learned":
             x = x + params["pos_embed"][:s].to(x.dtype)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         built: list[list[dict]] = [[] for _ in cfg.pattern]
         for c in range(cfg.cycles):
             for j, kind in enumerate(cfg.pattern):
-                x, layer_cache = block_forward(
+                x, layer_cache, aux = block_forward(
                     cfg, kind, _layer(params["blocks"][j], c), x, positions, causal=True
                 )
+                aux_total = aux_total + aux
                 if build_cache:
                     built[j].append(layer_cache)
         rem_built = []
         for j, kind in enumerate(cfg.remainder):
-            x, layer_cache = block_forward(
+            x, layer_cache, aux = block_forward(
                 cfg, kind, params["rem_blocks"][j], x, positions, causal=True
             )
+            aux_total = aux_total + aux
             rem_built.append(layer_cache)
         x = apply_norm(cfg.norm_kind, params["final_norm"], x)
         cache = None
         if build_cache:
             cache = self._cache_from_built(built, rem_built, s, cache_capacity or s)
-        return x, cache
+        return x, cache, aux_total
 
     def forward(
         self,
@@ -287,8 +326,7 @@ class Model:
         ``encoder_embeds`` is ignored, as in the reference for decoder-only
         configs (encoder-decoder configs raise at ``Model(cfg)``).
         """
-        x, cache = self._trunk(params, tokens, inputs_embeds, build_cache, cache_capacity)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, cache, aux = self._trunk(params, tokens, inputs_embeds, build_cache, cache_capacity)
         return self.unembed(params, x), cache, aux
 
     def _cache_from_built(
@@ -296,13 +334,17 @@ class Model:
     ) -> dict:
         """Assemble a decode cache from prefill by-products.
 
-        The full-sequence k/v *is* the cache; it is grown to ``capacity``
-        (zero slots past ``s``) so decode at position s does not wrap onto
-        slot 0.  A capacity at or below ``s`` keeps length ``s``, as in the
-        reference.
+        ATTN / ATTN_MOE: the full-sequence k/v *is* the cache, grown to
+        ``capacity`` (zero slots past ``s``) so decode at position s does not
+        wrap onto slot 0; a capacity at or below ``s`` keeps length ``s``, as
+        in the reference.  LOCAL_ATTN: a ring of w = min(local_window,
+        capacity) slots holding the last w tokens, token t in slot t % w; a
+        prompt shorter than w fills slots 0..s-1 and leaves zeros after them.
+        RGLRU: the final state each block returned.
         """
+        cfg = self.cfg
         cap = max(capacity, s)
-        cache: dict[str, Any] = {"scan": [], "rem": []}
+        ring = min(cfg.local_window, capacity)
 
         def grow(layers: list[torch.Tensor]) -> torch.Tensor:
             first = layers[0]
@@ -311,11 +353,27 @@ class Model:
                 out[i, :, :s] = a
             return out
 
-        for entries in built:
-            cache["scan"].append({n: grow([e[n] for e in entries]) for n in ("k", "v")})
-        for entry in rem_built:
-            cache["rem"].append({n: grow([entry[n]])[0] for n in ("k", "v")})
-        return cache
+        def to_ring(layers: list[torch.Tensor]) -> torch.Tensor:
+            first = layers[0]
+            out = first.new_zeros((len(layers), first.shape[0], ring, *first.shape[2:]))
+            keep = torch.arange(max(s - ring, 0), s, device=first.device)
+            for i, a in enumerate(layers):
+                out[i][:, keep % ring] = a[:, keep]
+            return out
+
+        def assemble(kind: str, entries: list[dict]) -> dict:
+            if kind == RGLRU:
+                return {n: torch.stack([e[n] for e in entries]) for n in ("h", "conv")}
+            fix = to_ring if kind == LOCAL_ATTN else grow
+            return {n: fix([e[n] for e in entries]) for n in ("k", "v")}
+
+        return {
+            "scan": [assemble(kind, entries) for kind, entries in zip(cfg.pattern, built)],
+            "rem": [
+                {n: a[0] for n, a in assemble(kind, [entry]).items()}
+                for kind, entry in zip(cfg.remainder, rem_built)
+            ],
+        }
 
     # -- decode step -----------------------------------------------------------
     def decode_step(
@@ -327,8 +385,8 @@ class Model:
     ) -> tuple[torch.Tensor, dict]:
         """One-token decode.  tokens (B,1); positions (B,).
 
-        Updates ``cache`` in place (one k/v row per sequence and layer) and
-        returns it beside the logits (B,1,V) in f32.
+        Updates ``cache`` in place (one k/v row, or the recurrent state, per
+        sequence and layer) and returns it beside the logits (B,1,V) in f32.
         """
         cfg = self.cfg
         x = self.embed(params, tokens)
@@ -336,7 +394,7 @@ class Model:
             x = x + params["pos_embed"][positions][:, None].to(x.dtype)
         for c in range(cfg.cycles):
             for j, kind in enumerate(cfg.pattern):
-                x, _ = block_forward(
+                x, _, _ = block_forward(
                     cfg,
                     kind,
                     _layer(params["blocks"][j], c),
@@ -346,7 +404,7 @@ class Model:
                     decode_positions=positions,
                 )
         for j, kind in enumerate(cfg.remainder):
-            x, _ = block_forward(
+            x, _, _ = block_forward(
                 cfg,
                 kind,
                 params["rem_blocks"][j],
@@ -382,7 +440,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     model = Model(cfg)
 
     def prefill_step(params, batch):
-        x, cache = model._trunk(
+        x, cache, _ = model._trunk(
             params, batch.get("tokens"), batch.get("inputs_embeds"), True, None
         )
         return model.unembed(params, x[:, -1:]), cache

@@ -6,9 +6,13 @@ Job 3 run on the card against the port's CPU engine.  The attention kernels
 are held against their plain versions at small shapes, in bf16 and f32, at
 ``tests/test_kernels.py``'s tolerances (f32 3e-5; bf16 3e-2, which also
 covers the flash kernel's bf16 rounding of P before P·V), and one GLM-4-9B
-SMOKE decode step on the card against ``device="cpu"``.  Without a card every test here
-skips.  On the card: ``python -m pytest -m gpu tests/test_torch_cuda.py``
-(this file imports neither jax nor the reference package).
+SMOKE decode step on the card against ``device="cpu"``.  The RG-LRU scan is
+held bit for bit against its plain version (both round each product and sum
+to f32), the expert matmul at the bf16/f32 tolerances above, at ragged and
+full shapes, and RecurrentGemma and Moonlight SMOKE prefill + decode on the
+card against ``device="cpu"``.  Without a card every test here skips.  On
+the card: ``python -m pytest -m gpu tests/test_torch_cuda.py`` (this file
+imports neither jax nor the reference package).
 """
 
 import pickle
@@ -23,13 +27,17 @@ from repro_torch.kernels import (
     flash_attention,
     keygroup_partition,
     launch_counts,
+    moe_gemm,
     reset_launch_counts,
+    rglru_scan,
 )
 from repro_torch.kernels.keygroup_partition import fold_keys64
 from repro_torch.kernels.keygroup_partition.ref import keygroup_partition_ref
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.radix_sort.ref import bucket_argsort_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -190,3 +198,97 @@ def test_glm4_smoke_decode_on_card_matches_cpu(cuda):
     top2 = np.sort(dec_c, axis=-1)[:, -2:]
     clear = (top2[:, 1] - top2[:, 0]) > 2 * np.abs(dec_g - dec_c).max()
     assert np.array_equal(dec_g.argmax(-1)[clear], dec_c.argmax(-1)[clear])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,w", [(1, 1, 1), (2, 17, 33), (3, 100, 260), (2, 256, 256),
+                                   (8, 2048, 2560)])
+def test_rglru_scan_kernel_matches_plain_bitwise(cuda, b, s, w, dtype):
+    g = torch.Generator().manual_seed(b + s + w)
+    a = (0.2 + 0.799 * torch.rand(b, s, w, generator=g)).to(dtype)
+    bb = (0.1 * torch.randn(b, s, w, generator=g)).to(dtype)
+    h0 = torch.randn(b, w, generator=g)
+    reset_launch_counts()
+    out = rglru_scan(a.to(cuda), bb.to(cuda), h0.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["rglru_scan"] == 1 and out.dtype == dtype
+    assert torch.equal(out.cpu(), rglru_scan_ref(a, bb, h0))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize(
+    "e,c,d,f",
+    [(4, 128, 256, 128), (8, 64, 128, 256), (2, 256, 512, 128), (3, 5, 72, 44),
+     (2, 70, 136, 200), (1, 1, 8, 8), (64, 8, 2048, 1408), (2, 33, 2048, 1408)],
+)
+def test_moe_gemm_kernel_matches_plain(cuda, e, c, d, f, dtype):
+    g = torch.Generator().manual_seed(e + c + d + f)
+    x = torch.randn(e, c, d, generator=g).to(dtype)
+    w = (0.05 * torch.randn(e, d, f, generator=g)).to(dtype)
+    reset_launch_counts()
+    out = moe_gemm(x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_gemm"] == 1 and out.shape == (e, c, f) and out.dtype == dtype
+    _close(out, moe_gemm_ref(x, w), dtype)
+
+
+def test_moe_gemm_kernel_takes_misaligned_tensors(cuda):
+    """A contiguous view two bytes into its storage: the kernel's CUDA-core
+    path, which makes no 16-byte loads."""
+    e, c, d, f = 2, 9, 64, 48
+    x = torch.randn(e * c * d + 1, dtype=torch.bfloat16, device=cuda)[1:].view(e, c, d)
+    w = torch.randn(e, d, f, dtype=torch.bfloat16, device=cuda)
+    _close(moe_gemm(x, w), moe_gemm_ref(x.cpu(), w.cpu()), torch.bfloat16)
+
+
+def test_new_wrappers_reject_noncontiguous_tensors(cuda):
+    a = torch.zeros(2, 8, 6, device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a, a, torch.zeros(2, 8, device=cuda))
+    x = torch.zeros(2, 4, 6, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gemm(x, torch.zeros(2, 8, 6, device=cuda).transpose(1, 2))
+    with pytest.raises(TypeError):
+        moe_gemm(x, torch.zeros(2, 6, 8, device=cuda, dtype=torch.bfloat16))
+
+
+# Moonlight in f32: in bf16 the card's and the CPU's router logits round
+# differently and near-ties in the top-k pick other experts.
+SMOKE_ON_CARD = [
+    ("recurrentgemma_2b", "bfloat16", ("rglru_scan", "flash_attention"),
+     dict(atol=0.75, rtol=0.15)),
+    ("moonshot_v1_16b_a3b", "float32", ("moe_gemm", "flash_attention"),
+     dict(atol=2e-3, rtol=2e-3)),
+]
+
+
+@pytest.mark.parametrize("arch,dtype,launched,tol", SMOKE_ON_CARD,
+                         ids=[c[0] for c in SMOKE_ON_CARD])
+def test_hybrid_and_moe_smoke_on_card_match_cpu(cuda, arch, dtype, launched, tol):
+    """SMOKE prefill past RecurrentGemma's window (64), so the ring wraps,
+    and decode on the card against device="cpu"."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_params
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    params = init_params(cfg, 0, device="cpu")
+    model = Model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(1))
+    logits_c, cache_c, _ = model.forward(params, tokens=toks, build_cache=True,
+                                         cache_capacity=96)
+    params_g = tree_map(lambda a: a.to(cuda), params)
+    reset_launch_counts()
+    logits_g, cache_g, _ = model.forward(params_g, tokens=toks.to(cuda), build_cache=True,
+                                         cache_capacity=96)
+    counts = launch_counts()
+    assert all(counts[name] > 0 for name in launched), counts
+    np.testing.assert_allclose(logits_g.cpu().numpy(), logits_c.numpy(), **tol)
+    for step in range(3):
+        nxt = torch.full((2, 1), 7 + step)
+        pos = torch.full((2,), 70 + step)
+        dec_c, _ = model.decode_step(params, cache_c, nxt, pos)
+        dec_g, _ = model.decode_step(params_g, cache_g, nxt.to(cuda), pos.to(cuda))
+        np.testing.assert_allclose(dec_g.cpu().numpy(), dec_c.numpy(), **tol)

@@ -40,7 +40,9 @@ from repro_torch.kernels import (
     flash_attention,
     keygroup_partition,
     launch_counts,
+    moe_gemm,
     reset_launch_counts,
+    rglru_scan,
 )
 from repro_torch.kernels.keygroup_partition import fold_keys64
 from repro_torch.kernels.keygroup_partition.ref import keygroup_partition_ref
@@ -197,8 +199,11 @@ def test_cpu_tensors_never_count_launches():
     q, kv = torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 1, 8)
     flash_attention(q, kv, kv)
     decode_attention(q[:, :1], kv, kv, torch.ones(1, dtype=torch.int32))
+    rglru_scan(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8), torch.zeros(1, 8))
+    moe_gemm(torch.zeros(2, 3, 8), torch.zeros(2, 8, 4))
     assert launch_counts() == {"keygroup_partition": 0, "radix_sort": 0,
-                               "flash_attention": 0, "decode_attention": 0}
+                               "flash_attention": 0, "decode_attention": 0,
+                               "rglru_scan": 0, "moe_gemm": 0}
 
 
 # ---------------------------------------------------------------------------

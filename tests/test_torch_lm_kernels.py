@@ -1,13 +1,15 @@
-"""The port's attention kernels' plain versions against the reference.
+"""The port's LM kernels' plain versions against the reference.
 
-``flash_attention`` and ``decode_attention`` in the port run their plain
-PyTorch versions (``ref.py``) on CPU tensors; those are held here against
-the reference's jnp oracles (``attention_ref``, ``decode_attention_ref``),
-its Pallas kernels in interpret mode and its layer functions
+``flash_attention``, ``decode_attention``, ``rglru_scan`` and ``moe_gemm``
+in the port run their plain PyTorch versions (``ref.py``) on CPU tensors;
+those are held here against the reference's jnp oracles (``attention_ref``,
+``decode_attention_ref``, ``rglru_scan_ref``, ``moe_gemm_ref``), its Pallas
+kernels in interpret mode and, for attention, its layer functions
 (``layers.full_attention`` / ``layers.decode_attention``), over the shape
 sweeps of ``tests/test_kernels.py`` and at its tolerances (f32 3e-5, bf16
-3e-2).  The port's own layer functions (full, chunked, decode with and
-without a window) are held against the reference's the same way.
+3e-2; the scan at its own 1e-5).  The port's own layer functions (full,
+chunked, decode with and without a window) are held against the reference's
+the same way.
 
 Inputs are drawn with numpy and cast to bf16 on each side (both round to
 nearest even, so both sides see the same bits).  The CUDA kernels run only
@@ -24,16 +26,24 @@ from repro.kernels.decode_attention.decode_attention import decode_attention_pal
 from repro.kernels.decode_attention.ref import decode_attention_ref as ref_decode_oracle
 from repro.kernels.flash_attention.flash_attention import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref as ref_flash_oracle
+from repro.kernels.moe_gemm.moe_gemm import moe_gemm_pallas
+from repro.kernels.moe_gemm.ref import moe_gemm_ref as ref_moe_oracle
+from repro.kernels.rglru_scan.ref import rglru_scan_ref as ref_scan_oracle
+from repro.kernels.rglru_scan.rglru_scan import rglru_scan_pallas
 from repro.models import layers as ref_layers
 
 from repro_torch.kernels import (
     decode_attention,
     flash_attention,
     launch_counts,
+    moe_gemm,
     reset_launch_counts,
+    rglru_scan,
 )
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.models import layers
 
 TOL = {
@@ -199,3 +209,113 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         decode_attention(q, k, k, torch.ones(1, dtype=torch.int32))
     with pytest.raises(TypeError):
         decode_attention(q[:, :1], k, k, torch.ones(1))
+
+
+# ---------------------------------------------------------------------------
+# rglru scan
+# ---------------------------------------------------------------------------
+
+SCAN_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_kernels.py:149
+SCAN_CASES = [  # tests/test_kernels.py:138-140: (b, s, w, block_seq, block_width)
+    (2, 256, 256, 64, 128),
+    (1, 128, 512, 128, 128),
+    (3, 512, 128, 256, 128),
+]
+
+
+def _scan_inputs(b, s, w, seed):
+    """a ~ U(0.2, 0.999), b ~ 0.1 N(0, 1), h0 ~ N(0, 1), as
+    tests/test_kernels.py:143-146 draws them (h0 nonzero)."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.2, 0.999, (b, s, w)).astype(np.float32)
+    bb = (0.1 * rng.standard_normal((b, s, w))).astype(np.float32)
+    h0 = rng.standard_normal((b, w)).astype(np.float32)
+    return a, bb, h0
+
+
+@pytest.mark.parametrize("b,s,w,bs,bw", SCAN_CASES)
+def test_rglru_scan_plain_matches_reference(b, s, w, bs, bw):
+    a, bb, h0 = _scan_inputs(b, s, w, seed=s + w)
+    out = rglru_scan_ref(*map(torch.from_numpy, (a, bb, h0)))
+    assert out.dtype == torch.float32 and out.shape == (b, s, w)
+    ja, jb, jh = map(jnp.asarray, (a, bb, h0))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_scan_oracle(ja, jb, jh)), **SCAN_TOL)
+    pallas = rglru_scan_pallas(ja, jb, jh, block_seq=bs, block_width=bw, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **SCAN_TOL)
+
+
+def test_rglru_scan_plain_keeps_a_dtype_and_f32_carry():
+    a, bb, h0 = _scan_inputs(2, 64, 32, seed=1)
+    (ja, ta), (jb, tb) = _pair(a, "bfloat16"), _pair(bb, "bfloat16")
+    out = rglru_scan_ref(ta, tb, torch.from_numpy(h0))
+    assert out.dtype == torch.bfloat16
+    _close(out, ref_scan_oracle(ja, jb, jnp.asarray(h0)), "bfloat16")
+
+
+def test_rglru_scan_wrapper_on_cpu_is_plain():
+    a, bb, h0 = map(torch.from_numpy, _scan_inputs(2, 40, 24, seed=2))
+    reset_launch_counts()
+    assert torch.equal(rglru_scan(a, bb, h0), rglru_scan_ref(a, bb, h0))
+    assert launch_counts()["rglru_scan"] == 0
+
+
+# ---------------------------------------------------------------------------
+# moe gemm
+# ---------------------------------------------------------------------------
+
+MOE_CASES = [  # tests/test_kernels.py:170-176
+    (4, 128, 256, 128, "float32"),
+    (8, 64, 128, 256, "float32"),
+    (2, 256, 512, 128, "bfloat16"),
+]
+
+
+def _moe_inputs(e, c, d, f, dtype, seed):
+    """x ~ N(0, 1), w ~ 0.05 N(0, 1), as tests/test_kernels.py:178-179."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    w = (0.05 * rng.standard_normal((e, d, f))).astype(np.float32)
+    return _pair(x, dtype), _pair(w, dtype)
+
+
+@pytest.mark.parametrize("e,c,d,f,dtype", MOE_CASES)
+def test_moe_gemm_plain_matches_reference(e, c, d, f, dtype):
+    (jx, tx), (jw, tw) = _moe_inputs(e, c, d, f, dtype, seed=e + c)
+    out = moe_gemm_ref(tx, tw)
+    assert out.dtype == TORCH[dtype] and out.shape == (e, c, f)
+    _close(out, ref_moe_oracle(jx, jw), dtype)
+    pallas = moe_gemm_pallas(jx, jw, block_c=64, block_d=128, block_f=64, interpret=True)
+    _close(out, pallas, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gemm_plain_ragged_matches_reference(dtype):
+    """Shapes no tile divides (the decode's 8 rows; d_ff 1,408 = 5.5 x 256
+    at Moonlight's width): the Pallas kernel asserts on them, the oracle
+    does not."""
+    (jx, tx), (jw, tw) = _moe_inputs(3, 5, 72, 44, dtype, seed=9)
+    _close(moe_gemm_ref(tx, tw), ref_moe_oracle(jx, jw), dtype)
+
+
+def test_moe_gemm_wrapper_on_cpu_is_plain():
+    (_, tx), (_, tw) = _moe_inputs(2, 8, 16, 24, "float32", seed=3)
+    reset_launch_counts()
+    assert torch.equal(moe_gemm(tx, tw), moe_gemm_ref(tx, tw))
+    assert launch_counts()["moe_gemm"] == 0
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take():
+    a = torch.zeros(2, 8, 4)
+    with pytest.raises(ValueError):
+        rglru_scan(a, a, torch.zeros(2, 5))
+    with pytest.raises(TypeError):
+        rglru_scan(a, a.double(), torch.zeros(2, 4))
+    with pytest.raises(ValueError):
+        rglru_scan(a[0], a[0], torch.zeros(8, 4))
+    x = torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError):
+        moe_gemm(x, torch.zeros(2, 5, 6))
+    with pytest.raises(TypeError):
+        moe_gemm(x, torch.zeros(2, 4, 6, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        moe_gemm(x[0], torch.zeros(4, 6))

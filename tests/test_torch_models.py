@@ -14,7 +14,16 @@ Tolerances:
   ``init_cache`` is hard-wired to bf16 (kvcache.py:39) and a float32
   decode on it raises in ``update_kv`` -- the port raises there too.
 * bfloat16 (the configs' own dtype): ``tests/test_models.py:105-106``'s
-  atol 0.75 / rtol 0.15 on decode logits, plus the argmax.
+  atol 0.75 / rtol 0.15 on decode logits, plus the argmax.  The MoE configs
+  are compared in float32 only: in bfloat16 the router's top-k can meet
+  ties, which torch and XLA break differently.
+
+RecurrentGemma's windowed (LOCAL_ATTN) ring departs from the reference in
+two places where the reference is at fault (ROADMAP queue 3): its decode
+masks the ring by slot index against absolute positions, and its
+``fix_local`` slices a wrong-sized ring from prompts shorter than the
+window.  The port is held against the reference's *own full forward*
+there, and two tests pin the reference's behaviour.
 """
 
 import dataclasses
@@ -45,9 +54,8 @@ from repro_torch.models.weights import to_torch
 F32_TOL = dict(atol=2e-4, rtol=2e-4)
 BF16_TOL = dict(atol=0.75, rtol=0.15)
 DENSE = ["glm4_9b", "llama3_2_3b", "gemma_7b"]
-UNPORTED_ARCHS = [
-    "dbrx_132b", "moonshot_v1_16b_a3b", "recurrentgemma_2b", "whisper_small", "xlstm_1_3b",
-]
+HYBRID_MOE = ["recurrentgemma_2b", "dbrx_132b", "moonshot_v1_16b_a3b"]
+UNPORTED_ARCHS = ["whisper_small", "xlstm_1_3b"]
 
 
 def _configs(arch, dtype=None):
@@ -102,7 +110,19 @@ def test_glm4_9b_full_width_size():
     assert cfg.param_count() == 9_399_762_944
 
 
-@pytest.mark.parametrize("arch", DENSE + ["qwen2_vl_7b", "mistral_nemo_12b"])
+def test_full_width_sizes_of_the_hybrid_and_moe_configs():
+    """Shapes and the parameters ``param_specs`` allocates (which the
+    configs' own ``param_count`` estimate does not reproduce exactly)."""
+    rg, moon = get_config("recurrentgemma_2b"), get_config("moonshot_v1_16b_a3b")
+    assert (rg.num_layers, rg.d_model, rg.lru_width, rg.local_window) == (26, 2560, 2560, 2048)
+    assert (moon.num_layers, moon.d_model, moon.moe.num_experts, moon.moe.top_k) == (48, 2048,
+                                                                                    64, 6)
+    for cfg, want in ((rg, 2_894_574_080), (moon, 28_057_995_264)):
+        specs = tree_leaves(param_specs(cfg), is_leaf=lambda x: isinstance(x, ParamSpec))
+        assert sum(int(np.prod(spec.shape)) for spec in specs) == want
+
+
+@pytest.mark.parametrize("arch", DENSE + ["qwen2_vl_7b", "mistral_nemo_12b"] + HYBRID_MOE)
 def test_param_tree_matches_reference(arch):
     ref_cfg, cfg = _configs(arch)
     ref_params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
@@ -171,6 +191,153 @@ def test_forward_cache_and_decode_match_reference_f32(arch):
         _assert_tree_close(cache, ref_cache, F32_TOL)
 
 
+@pytest.mark.parametrize("arch", HYBRID_MOE)
+def test_hybrid_and_moe_forward_cache_and_decode_match_reference_f32(arch):
+    """Forward (with the MoE router's aux loss), the built cache and two
+    decode steps.  RecurrentGemma's capacity is the prompt length, so its
+    ring holds the whole prompt in order and decodes below the window,
+    where the reference is right (past it, see the tests below)."""
+    ref_cfg, cfg = _configs(arch, "float32")
+    ref_params, params = _carried(ref_cfg, seed=2)
+    b, s = 2, 12
+    cap = s if arch == "recurrentgemma_2b" else 20
+    toks = _tokens(cfg, b, s, seed=3)
+    ref_logits, ref_cache, ref_aux = RefModel(ref_cfg).forward(
+        ref_params, tokens=jnp.asarray(toks), build_cache=True, cache_capacity=cap
+    )
+    logits, cache, aux = Model(cfg).forward(
+        params, tokens=torch.from_numpy(toks), build_cache=True, cache_capacity=cap
+    )
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), **F32_TOL)
+    np.testing.assert_allclose(float(aux), float(ref_aux), rtol=1e-5, atol=1e-12)
+    assert (float(aux) > 0) == (cfg.moe is not None)
+    _assert_tree_close(cache, ref_cache, F32_TOL)
+    for step, nxt in enumerate((7, 11)):
+        pos = np.full((b,), s + step, np.int32)
+        tok = np.full((b, 1), nxt, np.int32)
+        ref_dec, ref_cache = RefModel(ref_cfg).decode_step(
+            ref_params, ref_cache, jnp.asarray(tok), jnp.asarray(pos)
+        )
+        dec, cache = Model(cfg).decode_step(
+            params, cache, torch.from_numpy(tok), torch.from_numpy(pos)
+        )
+        np.testing.assert_allclose(dec.numpy(), np.asarray(ref_dec), **F32_TOL)
+        _assert_tree_close(cache, ref_cache, F32_TOL)
+
+
+def _local_layer(cfg):
+    """Index of RecurrentGemma's LOCAL_ATTN entry in the stacked cache."""
+    return cfg.pattern.index("local_attn")
+
+
+def test_recurrentgemma_decode_past_the_window_matches_reference_forward_f32():
+    """A prompt longer than the window (the ring has wrapped), then
+    teacher-forced decode steps on to past twice the window: each step's
+    logits equal the reference's own full forward over the sequence at
+    that position.  The prefill-built ring equals the reference's (its
+    slice-and-roll is right for prompts of at least the window)."""
+    ref_cfg, cfg = _configs("recurrentgemma_2b", "float32")
+    w = cfg.local_window
+    ref_params, params = _carried(ref_cfg, seed=12)
+    b, s, total = 2, w + 6, 2 * w + 12
+    toks = _tokens(cfg, b, total, seed=13)
+    ref_logits = np.asarray(RefModel(ref_cfg).forward(ref_params, tokens=jnp.asarray(toks))[0])
+    _, ref_cache, _ = RefModel(ref_cfg).forward(
+        ref_params, tokens=jnp.asarray(toks[:, :s]), build_cache=True, cache_capacity=4 * w
+    )
+    logits, cache, _ = Model(cfg).forward(
+        params, tokens=torch.from_numpy(toks[:, :s]), build_cache=True, cache_capacity=4 * w
+    )
+    np.testing.assert_allclose(logits.numpy(), ref_logits[:, :s], **F32_TOL)
+    _assert_tree_close(cache, ref_cache, F32_TOL)
+    assert cache["scan"][_local_layer(cfg)]["k"].shape[2] == w
+    model = Model(cfg)
+    for pos in range(s, total):
+        dec, cache = model.decode_step(params, cache, torch.from_numpy(toks[:, pos : pos + 1]),
+                                       torch.full((b,), pos))
+        np.testing.assert_allclose(dec.numpy()[:, 0], ref_logits[:, pos], **F32_TOL)
+
+
+@pytest.mark.parametrize("s,capacity", [(12, 20), (40, 64), (12, 212)])
+def test_recurrentgemma_ring_from_a_short_prompt_is_built_right(s, capacity):
+    """s < w: tokens 0..s-1 in slots 0..s-1 and zeros after them -- by
+    hand, from the reference's cache built with capacity s (a ring of s
+    slots in token order); then a decode below the window matches the
+    reference's full forward."""
+    ref_cfg, cfg = _configs("recurrentgemma_2b", "float32")
+    ref_params, params = _carried(ref_cfg, seed=14)
+    b = 2
+    toks = _tokens(cfg, b, s + 1, seed=15)
+    _, ref_cache, _ = RefModel(ref_cfg).forward(
+        ref_params, tokens=jnp.asarray(toks[:, :s]), build_cache=True, cache_capacity=s
+    )
+    _, cache, _ = Model(cfg).forward(
+        params, tokens=torch.from_numpy(toks[:, :s]), build_cache=True, cache_capacity=capacity
+    )
+    j = _local_layer(cfg)
+    ring = min(cfg.local_window, capacity)
+    for name in ("k", "v"):
+        prompt = np.asarray(ref_cache["scan"][j][name], np.float32)
+        by_hand = np.zeros(prompt.shape[:2] + (ring,) + prompt.shape[3:], np.float32)
+        by_hand[:, :, :s] = prompt
+        np.testing.assert_allclose(cache["scan"][j][name].numpy(), by_hand, **F32_TOL)
+    ref_logits = np.asarray(RefModel(ref_cfg).forward(ref_params, tokens=jnp.asarray(toks))[0])
+    dec, _ = Model(cfg).decode_step(params, cache, torch.from_numpy(toks[:, s:]),
+                                    torch.full((b,), s))
+    np.testing.assert_allclose(dec.numpy()[:, 0], ref_logits[:, s], **F32_TOL)
+
+
+def test_reference_windowed_decode_departs_from_its_own_forward():
+    """Documents the reference's fault (transformer.py:172 with
+    layers.py:128-139): its ring decode compares slot indices with absolute
+    positions, so past the window it masks the newest keys (here, at
+    position 131 >= 2w - 1, all of them).  The port's decode matches the
+    reference's own full forward there."""
+    ref_cfg, cfg = _configs("recurrentgemma_2b", "float32")
+    ref_params, params = _carried(ref_cfg, seed=16)
+    b, s = 2, 131
+    toks = _tokens(cfg, b, s + 1, seed=17)
+    ref_full = np.asarray(RefModel(ref_cfg).forward(ref_params, tokens=jnp.asarray(toks))[0])
+    ref_model = RefModel(ref_cfg)
+    _, ref_cache, _ = ref_model.forward(
+        ref_params, tokens=jnp.asarray(toks[:, :s]), build_cache=True, cache_capacity=256
+    )
+    ref_dec, _ = ref_model.decode_step(ref_params, ref_cache, jnp.asarray(toks[:, s:]),
+                                       jnp.full((b,), s, jnp.int32))
+    ref_gap = float(np.abs(np.asarray(ref_dec)[:, 0] - ref_full[:, s]).max())
+    assert ref_gap > 0.1, ref_gap
+    _, cache, _ = Model(cfg).forward(
+        params, tokens=torch.from_numpy(toks[:, :s]), build_cache=True, cache_capacity=256
+    )
+    dec, _ = Model(cfg).decode_step(params, cache, torch.from_numpy(toks[:, s:]),
+                                    torch.full((b,), s))
+    np.testing.assert_allclose(dec.numpy()[:, 0], ref_full[:, s], **F32_TOL)
+
+
+@pytest.mark.parametrize("s,capacity,slots", [(12, 20, 8), (40, 64, 24)])
+def test_reference_fix_local_slices_a_wrong_sized_ring(s, capacity, slots):
+    """Documents the reference's fault (transformer.py:396): for s < w the
+    slice starts at s - w < 0, which JAX counts from the end."""
+    ref_cfg, cfg = _configs("recurrentgemma_2b", "float32")
+    ref_params, params = _carried(ref_cfg, seed=18)
+    toks = _tokens(cfg, 1, s, seed=19)
+    _, ref_cache, _ = RefModel(ref_cfg).forward(ref_params, tokens=jnp.asarray(toks),
+                                                build_cache=True, cache_capacity=capacity)
+    j = _local_layer(cfg)
+    assert ref_cache["scan"][j]["k"].shape[2] == slots
+    _, cache, _ = Model(cfg).forward(params, tokens=torch.from_numpy(toks),
+                                     build_cache=True, cache_capacity=capacity)
+    assert cache["scan"][j]["k"].shape[2] == min(cfg.local_window, capacity)
+
+
+def test_reference_fix_local_raises_on_a_short_prompt_in_a_long_ring():
+    ref_cfg, cfg = _configs("recurrentgemma_2b", "float32")
+    ref_params, _ = _carried(ref_cfg, seed=18)
+    toks = jnp.asarray(_tokens(cfg, 1, 12, seed=19))
+    with pytest.raises(TypeError, match="nonnegative"):
+        RefModel(ref_cfg).forward(ref_params, tokens=toks, build_cache=True, cache_capacity=212)
+
+
 def test_mrope_backbone_from_embeddings_matches_reference_f32():
     ref_cfg, cfg = _configs("qwen2_vl_7b", "float32")
     ref_params, params = _carried(ref_cfg, seed=4)
@@ -180,7 +347,7 @@ def test_mrope_backbone_from_embeddings_matches_reference_f32():
     np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), **F32_TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + HYBRID_MOE)
 def test_prefill_step_matches_reference_f32(arch):
     ref_cfg, cfg = _configs(arch, "float32")
     ref_params, params = _carried(ref_cfg, seed=6)
@@ -233,7 +400,7 @@ def test_update_kv_writes_in_place_mod_capacity():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["recurrentgemma_2b"])
 def test_decode_step_on_init_cache_matches_reference_bf16(arch):
     ref_cfg, cfg = _configs(arch)
     ref_params, params = _carried(ref_cfg, seed=1)

@@ -4,8 +4,9 @@ neither jax nor anything of the reference package ``repro``.
 Pinned two ways: statically, over every import statement (top level or
 nested) in the port's sources and the chip smoke script; and at run time,
 by importing the package, running a small Real Job 3 and one SMOKE decode
-tick of the serve loop in a subprocess where ``import jax`` and
-``import repro`` fail.
+tick of the serve loop for a dense, a hybrid (RG-LRU + windowed attention)
+and a MoE config in a subprocess where ``import jax`` and ``import repro``
+fail.
 """
 
 import ast
@@ -62,6 +63,8 @@ import repro_torch
 import repro_torch.core, repro_torch.data, repro_torch.engine, repro_torch.kernels
 import repro_torch.solver
 import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
+import repro_torch.models.moe, repro_torch.models.rglru
+import repro_torch.kernels.moe_gemm, repro_torch.kernels.rglru_scan
 from repro_torch.data import StreamSpec, airline_stream, real_job_3
 from repro_torch.engine import Engine
 eng = Engine(real_job_3(keygroups_per_op=8), 3, service_rate=1e9, device="cpu")
@@ -86,11 +89,12 @@ else:
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import DecodeWorker
 from repro_torch.models import init_params
-cfg = get_config("glm4_9b", smoke=True)
-worker = DecodeWorker(0, cfg, init_params(cfg, 0, device="cpu"), 2, device="cpu")
-worker.occupant[0], worker.positions[0], worker.tokens[0, 0] = 0, 5, 1
-n, secs = worker.decode_tick()
-assert n == 1 and secs > 0 and worker.positions[0] == 6
+for arch in ("glm4_9b", "recurrentgemma_2b", "moonshot_v1_16b_a3b"):
+    cfg = get_config(arch, smoke=True)
+    worker = DecodeWorker(0, cfg, init_params(cfg, 0, device="cpu"), 2, device="cpu")
+    worker.occupant[0], worker.positions[0], worker.tokens[0, 0] = 0, 5, 1
+    n, secs = worker.decode_tick()
+    assert n == 1 and secs > 0 and worker.positions[0] == 6
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.metrics.sink_tuples)

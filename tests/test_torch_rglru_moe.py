@@ -1,0 +1,282 @@
+"""The port's RG-LRU block and MoE layer against the reference's.
+
+Parameters are the reference's own (``init_from_specs`` from a PRNG key,
+with the zero- and one-initialised gate biases and Λ redrawn so that every
+term of the decay is exercised), carried to torch bit for bit; inputs are
+drawn with numpy.  All in float32 at SMOKE width, on the CPU, where the
+port's kernels run their plain versions.
+
+Tolerances: ``F32_TOL`` (atol = rtol = 2e-4, tests/test_torch_models.py's),
+for sums taken in another order -- the reference's associative scan against
+the port's sequential one, and in the MoE combine the k contributions of a
+token added by ``index_add_`` in another order than XLA's scatter-add.  The
+MoE dispatch itself is integer work and held exactly: ``tokens_per_expert``
+bit for bit.  (In bfloat16 the router's top-k can meet ties, which torch
+and XLA break differently; the dispatch is compared in float32 only.)
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import moe as ref_moe
+from repro.models import rglru as ref_rglru
+from repro.models.common import init_from_specs as ref_init_from_specs
+from repro.models.transformer import _block_specs as ref_block_specs
+from repro.models.transformer import block_forward as ref_block_forward
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ATTN_MOE
+from repro_torch.kernels import launch_counts, moe_gemm, reset_launch_counts
+from repro_torch.models import moe, rglru
+from repro_torch.models.transformer import block_forward
+from repro_torch.models.weights import to_torch
+
+F32_TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+def _configs(arch):
+    ref = dataclasses.replace(ref_get_config(arch, smoke=True), dtype="float32")
+    port = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    return ref, port
+
+
+def _close(port, ref, tol=F32_TOL):
+    np.testing.assert_allclose(port.detach().float().numpy(), np.asarray(ref, np.float32), **tol)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+
+def _rglru_params(ref_cfg, seed):
+    p = ref_init_from_specs(ref_rglru.rglru_specs(ref_cfg), jax.random.PRNGKey(seed),
+                            jnp.float32)
+    rng = np.random.default_rng(seed)
+    w = p["lam"].shape[0]
+    for name in ("lam", "b_a", "b_i", "conv_b"):
+        p[name] = jnp.asarray(rng.standard_normal(w).astype(np.float32))
+    return p, to_torch(jax.tree.map(np.asarray, p))
+
+
+def test_rglru_scan_with_h0_matches_reference_associative_scan():
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0.2, 0.999, (2, 37, 24)).astype(np.float32)
+    b = (0.1 * rng.standard_normal((2, 37, 24))).astype(np.float32)
+    h0 = rng.standard_normal((2, 24)).astype(np.float32)
+    got = rglru.rglru_scan(*map(torch.from_numpy, (a, b, h0)))
+    _close(got, ref_rglru.rglru_scan(*map(jnp.asarray, (a, b, h0))))
+    got0 = rglru.rglru_scan(torch.from_numpy(a), torch.from_numpy(b))
+    _close(got0, ref_rglru.rglru_scan(jnp.asarray(a), jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("s", [1, 2, 20])
+def test_rglru_block_prefill_and_decode_match_reference(s):
+    ref_cfg, cfg = _configs("recurrentgemma_2b")
+    ref_p, p = _rglru_params(ref_cfg, seed=s)
+    rng = np.random.default_rng(10 + s)
+    x = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+
+    ref_out, ref_cache = ref_rglru.rglru_block(ref_cfg, ref_p, jnp.asarray(x))
+    out, cache = rglru.rglru_block(cfg, p, torch.from_numpy(x))
+    _close(out, ref_out)
+    assert cache["h"].dtype == torch.float32 and cache["conv"].shape == (2, 3, cfg.lru_width)
+    for name in ("h", "conv"):
+        _close(cache[name], ref_cache[name])
+
+    # Three decode steps from the built cache, updated in place.
+    h_buf, conv_buf = cache["h"], cache["conv"]
+    for step in range(3):
+        x_t = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+        ref_out, ref_cache = ref_rglru.rglru_block(ref_cfg, ref_p, jnp.asarray(x_t),
+                                                   cache=ref_cache)
+        out, cache = rglru.rglru_block(cfg, p, torch.from_numpy(x_t), cache=cache)
+        _close(out, ref_out)
+        for name in ("h", "conv"):
+            _close(cache[name], ref_cache[name])
+        assert cache["h"] is h_buf and cache["conv"] is conv_buf
+
+
+def test_rglru_decode_keeps_the_reference_values_in_an_f32_state():
+    """bf16 activations: the reference returns h_t in bf16; the port writes
+    it into its f32 buffer, which holds the same values exactly."""
+    ref_cfg, cfg = ref_get_config("recurrentgemma_2b", smoke=True), get_config(
+        "recurrentgemma_2b", smoke=True)
+    ref_p = ref_init_from_specs(ref_rglru.rglru_specs(ref_cfg), jax.random.PRNGKey(1),
+                                jnp.bfloat16)
+    p = to_torch(jax.tree.map(np.asarray, ref_p))
+    x = np.random.default_rng(1).standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    w = cfg.lru_width
+    ref_cache = {"h": jnp.zeros((2, w), jnp.float32), "conv": jnp.zeros((2, 3, w), jnp.bfloat16)}
+    cache = {"h": torch.zeros(2, w), "conv": torch.zeros(2, 3, w, dtype=torch.bfloat16)}
+    _, ref_cache = ref_rglru.rglru_block(ref_cfg, ref_p, jnp.asarray(x, jnp.bfloat16),
+                                         cache=ref_cache)
+    _, cache = rglru.rglru_block(cfg, p, torch.from_numpy(x).to(torch.bfloat16), cache=cache)
+    assert ref_cache["h"].dtype == jnp.bfloat16 and cache["h"].dtype == torch.float32
+    # Same bf16 inputs, bf16 rounding of h_t on both sides.
+    np.testing.assert_allclose(cache["h"].numpy(), np.asarray(ref_cache["h"], np.float32),
+                               atol=3e-2, rtol=3e-2)
+    assert torch.equal(cache["h"], cache["h"].to(torch.bfloat16).float())
+
+
+def test_rglru_decode_rejects_a_conv_cache_of_another_dtype():
+    ref_cfg, cfg = _configs("recurrentgemma_2b")
+    _, p = _rglru_params(ref_cfg, 0)
+    w = cfg.lru_width
+    cache = {"h": torch.zeros(2, w), "conv": torch.zeros(2, 3, w, dtype=torch.bfloat16)}
+    with pytest.raises(TypeError, match="in place"):
+        rglru.rglru_block(cfg, p, torch.zeros(2, 1, cfg.d_model), cache=cache)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["dbrx_132b", "moonshot_v1_16b_a3b"]
+
+
+def _moe_params(ref_cfg, seed):
+    p = ref_init_from_specs(ref_moe.moe_specs(ref_cfg), jax.random.PRNGKey(seed), jnp.float32)
+    return p, to_torch(jax.tree.map(np.asarray, p))
+
+
+def _leaning_inputs(cfg, router, b, s, seed):
+    """Random tokens, the first half of each row pushed along expert 0's
+    router column so that its bucket overflows the capacity."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    col = np.asarray(router, np.float32)[:, 0]
+    x[:, : s // 2] += 4.0 * col / np.linalg.norm(col)
+    return x
+
+
+def _overflow(cfg, router, x):
+    """Tokens dropped for want of capacity, over all rows (numpy top-k)."""
+    moe_cfg = cfg.moe
+    logits = x @ np.asarray(router, np.float32)
+    chosen = np.argsort(-logits, axis=-1)[..., : moe_cfg.top_k]
+    counts = np.stack([np.bincount(row.reshape(-1), minlength=moe_cfg.num_experts)
+                       for row in chosen])
+    return int(np.maximum(counts - moe.capacity(cfg, x.shape[1]), 0).sum())
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_matches_reference_with_overflow(arch):
+    ref_cfg, cfg = _configs(arch)
+    ref_p, p = _moe_params(ref_cfg, seed=3)
+    b, s = 2, 48
+    x = _leaning_inputs(cfg, ref_p["router"], b, s, seed=4)
+    assert _overflow(cfg, ref_p["router"], x) > 0
+
+    ref_out, ref_stats = ref_moe.moe_forward(ref_cfg, ref_p, jnp.asarray(x),
+                                             return_router_stats=True)
+    reset_launch_counts()
+    out, stats = moe.moe_forward(cfg, p, torch.from_numpy(x), return_router_stats=True)
+    assert launch_counts()["moe_gemm"] == 0  # CPU tensors: the plain version
+    _close(out, ref_out)
+    assert np.array_equal(stats["tokens_per_expert"].numpy(),
+                          np.asarray(ref_stats["tokens_per_expert"]))
+    _close(stats["router_logits"], ref_stats["router_logits"])
+    assert torch.equal(moe.moe_forward(cfg, p, torch.from_numpy(x)), out)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_block_aux_matches_reference(arch):
+    """The ATTN_MOE block: attention, the MoE FFN and its router z-loss."""
+    ref_cfg, cfg = _configs(arch)
+    ref_p = ref_init_from_specs(ref_block_specs(ref_cfg, ATTN_MOE), jax.random.PRNGKey(5),
+                                jnp.float32)
+    p = to_torch(jax.tree.map(np.asarray, ref_p))
+    x = _leaning_inputs(cfg, ref_p["moe"]["router"], 2, 40, seed=6)
+    positions = np.arange(40)[None, :]
+    ref_x, _, ref_aux, _ = ref_block_forward(ref_cfg, ATTN_MOE, ref_p, jnp.asarray(x),
+                                             jnp.asarray(positions))
+    got_x, _, aux = block_forward(cfg, ATTN_MOE, p, torch.from_numpy(x),
+                                  torch.from_numpy(positions))
+    # The block's outputs reach |x| ~ 30 at the reference's init; summation
+    # order errors scale with the largest terms, so atol scales with them.
+    scale = float(np.abs(np.asarray(ref_x)).max())
+    _close(got_x, ref_x, dict(atol=F32_TOL["atol"] * scale, rtol=F32_TOL["rtol"]))
+    assert float(ref_aux) > 0
+    np.testing.assert_allclose(float(aux), float(ref_aux), rtol=1e-5)
+
+
+def test_moe_decode_skips_router_stats(monkeypatch):
+    """A decode step drops the aux, so its MoE layers ask for no router
+    stats; a forward asks once per MoE layer, and each layer applies its
+    router once (the stats reuse the dispatch's logits and top-k)."""
+    import repro_torch.models.transformer as transformer
+    from repro_torch.models import Model, init_params
+
+    cfg = _configs("moonshot_v1_16b_a3b")[1]
+    params = init_params(cfg, 0, device="cpu")
+    asked, routers = [], []
+    routed = transformer.moe_forward
+
+    def recording(cfg_, p, x, **kw):
+        asked.append(kw.get("return_router_stats", False))
+        return routed(cfg_, p, x, **kw)
+
+    topk = torch.topk
+
+    def counting_topk(a, k, *args, **kw):
+        if a.shape[-1] == cfg.moe.num_experts:
+            routers.append(tuple(a.shape))
+        return topk(a, k, *args, **kw)
+
+    monkeypatch.setattr(transformer, "moe_forward", recording)
+    monkeypatch.setattr(torch, "topk", counting_topk)
+    tokens = torch.from_numpy(np.random.default_rng(10).integers(0, cfg.vocab_size, (2, 12)))
+    model = Model(cfg)
+    _, cache, aux = model.forward(params, tokens=tokens, build_cache=True, cache_capacity=16)
+    layers = cfg.num_layers
+    assert asked == [True] * layers and len(routers) == layers and float(aux) > 0
+    asked.clear()
+    routers.clear()
+    model.decode_step(params, cache, tokens[:, -1:], torch.full((2,), 12))
+    assert asked == [False] * layers and len(routers) == layers
+
+
+@pytest.mark.parametrize("s", [1, 40])
+def test_moe_products_get_contiguous_operands(s, monkeypatch):
+    """The card's kernel takes contiguous operands only; at the decode shape
+    (S = 1: capacity 1, (E, B, d) products, no drop) the fold's reshape
+    alone would hand it a strided view."""
+    ref_cfg, cfg = _configs("moonshot_v1_16b_a3b")
+    ref_p, p = _moe_params(ref_cfg, seed=7)
+    x = np.random.default_rng(8).standard_normal((3, s, cfg.d_model)).astype(np.float32)
+    if s == 1:
+        assert moe.capacity(cfg, 1) == 1 and _overflow(cfg, ref_p["router"], x) == 0
+    shapes = []
+
+    def contiguous_only(a, w):
+        assert a.is_contiguous() and w.is_contiguous()
+        shapes.append(tuple(a.shape))
+        return moe_gemm(a, w)
+
+    monkeypatch.setattr(moe, "moe_gemm", contiguous_only)
+    _close(moe.moe_forward(cfg, p, torch.from_numpy(x)),
+           ref_moe.moe_forward(ref_cfg, ref_p, jnp.asarray(x)))
+    cap = moe.capacity(cfg, s)
+    assert shapes[0] == (cfg.moe.num_experts, 3 * cap, cfg.d_model) and len(shapes) == 3
+
+
+def test_load_balancing_loss_matches_reference():
+    rng = np.random.default_rng(9)
+    logits = rng.standard_normal((50, 8)).astype(np.float32)
+    chosen = np.argsort(-logits, axis=-1)[:, :2]
+    got = moe.load_balancing_loss(torch.from_numpy(logits), torch.from_numpy(chosen), 8)
+    ref = ref_moe.load_balancing_loss(jnp.asarray(logits), jnp.asarray(chosen), 8)
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
+
+
+def test_expert_parallel_names_its_roadmap_item():
+    _, cfg = _configs("moonshot_v1_16b_a3b")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        moe._moe_expert_parallel(cfg, {}, torch.zeros(1, 2, cfg.d_model), {})

@@ -110,9 +110,12 @@ def test_decode_worker_ticks_match_reference(dtype, fixed_clocks):
     assert w.free_slots() == ref_w.free_slots()
 
 
-def test_serve_loop_matches_reference_main(fixed_clocks, monkeypatch, capsys):
-    settings = dict(ticks=30, workers=3, slots=4, arrival_rate=1.5, spl_ticks=10,
-                    max_migrations=0, hetero=0.5, seed=0)
+SERVE_SETTINGS = dict(ticks=30, workers=3, slots=4, arrival_rate=1.5, spl_ticks=10,
+                      max_migrations=0, hetero=0.5, seed=0)
+
+
+def _record_states(monkeypatch):
+    """Patch both packages' AdaptationFramework to record every state."""
     states = {"ref": [], "port": []}
 
     def recording(cls, key):
@@ -127,12 +130,36 @@ def test_serve_loop_matches_reference_main(fixed_clocks, monkeypatch, capsys):
                         recording(ref_serve.AdaptationFramework, "ref"))
     monkeypatch.setattr(serve, "AdaptationFramework",
                         recording(serve.AdaptationFramework, "port"))
-    argv = ["--arch", "glm4_9b"]
+    return states
+
+
+def _argv(arch, settings):
+    argv = ["--arch", arch]
     for name, value in settings.items():
         argv += [f"--{name.replace('_', '-')}", str(value)]
-    monkeypatch.setattr("sys.argv", ["serve", *argv])
+    return argv
+
+
+def _serve_lines(text):
+    return [ln for ln in text.splitlines() if ln.startswith("[serve]")]
+
+
+def _assert_same_states(states):
+    assert len(states["port"]) == len(states["ref"]) == 3
+    for port_state, ref_state in zip(states["port"], states["ref"]):
+        for field in ("kg_operator", "kg_load", "alloc", "kg_state_bytes", "capacity",
+                      "alive"):
+            a, b = getattr(port_state, field), getattr(ref_state, field)
+            assert np.array_equal(np.asarray(a), np.asarray(b)), field
+        assert port_state.num_nodes == ref_state.num_nodes
+
+
+def test_serve_loop_matches_reference_main(fixed_clocks, monkeypatch, capsys):
+    settings = SERVE_SETTINGS
+    states = _record_states(monkeypatch)
+    monkeypatch.setattr("sys.argv", ["serve", *_argv("glm4_9b", settings)])
     ref_serve.main()
-    ref_lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[serve]")]
+    ref_lines = _serve_lines(capsys.readouterr().out)
 
     cfg = get_config("glm4_9b", smoke=True)
     params = to_torch(jax.tree.map(
@@ -142,21 +169,34 @@ def test_serve_loop_matches_reference_main(fixed_clocks, monkeypatch, capsys):
     stats = serve_loop(cfg, params, device="cpu", log=lines.append, **settings)
 
     assert lines == ref_lines
-    assert len(states["port"]) == len(states["ref"]) == 3
-    for port_state, ref_state in zip(states["port"], states["ref"]):
-        for field in ("kg_operator", "kg_load", "alloc", "kg_state_bytes", "capacity",
-                      "alive"):
-            a, b = getattr(port_state, field), getattr(ref_state, field)
-            assert np.array_equal(np.asarray(a), np.asarray(b)), field
-        assert port_state.num_nodes == ref_state.num_nodes
+    _assert_same_states(states)
     assert stats.completed == int(ref_lines[-1].split()[2])
     assert stats.decode_tokens > 0 and stats.migrations == 0
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "moonshot_v1_16b_a3b"])
+def test_serve_main_matches_reference_main(arch, fixed_clocks, monkeypatch, capsys):
+    """``python -m repro_torch.launch.serve --arch <arch> --device cpu``
+    against the reference's ``main()``: the loop's bookkeeping (log lines,
+    controller states) does not depend on the decoded values, so the two
+    agree line for line -- though the reference's windowed decode is wrong
+    past RecurrentGemma's window (ROADMAP queue 3) and the parameters
+    differ (each package's own ``init_params``)."""
+    states = _record_states(monkeypatch)
+    argv = _argv(arch, SERVE_SETTINGS)
+    monkeypatch.setattr("sys.argv", ["serve", *argv])
+    ref_serve.main()
+    ref_lines = _serve_lines(capsys.readouterr().out)
+    serve.main(argv + ["--device", "cpu"])
+    lines = _serve_lines(capsys.readouterr().out)
+    assert lines == ref_lines and len(lines) == 4
+    _assert_same_states(states)
 
 
 def _fill(worker, seed):
     """Distinct random values in every cache leaf, deterministically."""
     g = torch.Generator().manual_seed(seed)
-    for entry in worker.cache["scan"]:
+    for entry in worker.cache["scan"] + worker.cache["rem"]:
         for a in entry.values():
             a.copy_(torch.randn(a.shape, generator=g).to(a.dtype))
 
@@ -183,6 +223,34 @@ def test_migration_moves_one_slot_along_the_batch_axis():
         for slot, rows in zip((0, 3, 2), before):
             assert torch.equal(dst.cache["scan"][0][name][:, slot],
                                rows["scan"][0][name][:, 0])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "moonshot_v1_16b_a3b"])
+def test_migration_moves_recurrent_ring_and_remainder_rows(arch):
+    """Every leaf, whatever its rank: RG-LRU state ``h`` (cycles, slots, W)
+    and ``conv`` (cycles, slots, 3, W), the LOCAL_ATTN ring, the MoE
+    layers' k/v, and the remainder blocks' leaves (slot axis 0)."""
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, 0, device="cpu")
+    src = DecodeWorker(0, cfg, params, 4, device="cpu")
+    dst = DecodeWorker(1, cfg, params, 4, device="cpu")
+    _fill(src, 3)
+    _fill(dst, 4)
+    blob = src.extract(1)
+    before = {slot: slot_rows(dst.cache, slot) for slot in (0, 1, 3)}
+    dst.install(2, blob, sid=9)
+    ranks = set()
+    for part, axis in (("scan", 1), ("rem", 0)):
+        for i, entry in enumerate(dst.cache[part]):
+            for name, a in entry.items():
+                ranks.add((part, a.dim()))
+                assert blob["cache"][part][i][name].shape[axis] == 1
+                assert torch.equal(a.select(axis, 2), src.cache[part][i][name].select(axis, 1))
+                for slot, rows in before.items():
+                    assert torch.equal(a.select(axis, slot),
+                                       rows[part][i][name].select(axis, 0))
+    if arch == "recurrentgemma_2b":
+        assert {("scan", 3), ("scan", 4), ("scan", 5), ("rem", 2), ("rem", 3)} <= ranks
 
 
 def test_reference_extract_slices_the_layer_axis():
