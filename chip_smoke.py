@@ -18,7 +18,8 @@ error or mismatch:
    reference's); a planted fault per kernel (a dropped KV tile or split, the
    scan's carry reset halfway, a skipped K tile) must fail that check -- and
    time kernel, plain version and the library yardstick with CUDA events,
-   flash also at RecurrentGemma's head_dim 256;
+   flash at the GLM, Moonlight and RecurrentGemma (head_dim 256) prefills'
+   shapes, with a planted fault at head_dim 128 and at 256;
 3. the engine path at full size: Real Job 3 (airline → extract → sumdelay →
    routedelay) with 1000 key groups per operator on 16 nodes, one 2^20-tuple
    airline batch per tick for 20 ticks, every routed hop through both
@@ -374,10 +375,10 @@ def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, cap=LM_CONTEX
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
             b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
             main = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-            log(f"[kernel] flash_attention B={b} S={seq} H={heads} KV={kv} hd={hd} causal: "
-                f"{ms:.4f} ms (plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
-                f"by {b_by}; {flops / ms / 1e9:.1f} TFLOP/s), max_abs_err={err} "
-                f"max_row_rel_err={rel:.3e}")
+            log(f"[kernel] flash_attention GLM prefill: B={b} S={seq} H={heads} KV={kv} hd={hd} "
+                f"causal: {ms:.4f} ms (plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {b_by}; {flash_rate(b, seq, heads, hd, ms, b_ms)}), "
+                f"max_abs_err={err} max_row_rel_err={rel:.3e}")
         else:
             # Planted fault: a window of seq - 64 drops the first KV tile
             # (up to 64 keys) from the last rows; held against full causal.
@@ -463,36 +464,58 @@ def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, cap=LM_CONTEX
     return out
 
 
-def flash_hd256_case(dev, reps: int = 5) -> dict:
-    """The flash kernel at RecurrentGemma's prefill shape: B=8, S=2048,
-    H=10 over KV=1, hd=256, window 2,048, bf16 -- the CUDA-core path (the
-    tensor-core path takes hd <= 128).  With S <= window the window masks
-    nothing, so SDPA with ``is_causal`` is the same function."""
+def flash_rate(b, s, h, hd, ms, b_ms) -> str:
+    """Achieved TFLOP/s of causal flash at (b, s, h, hd) and its share of
+    the bound, for the log."""
+    flops = 4 * b * h * hd * (s * (s + 1) // 2)
+    return f"{flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound"
+
+
+def flash_timed_case(dev, what: str, b: int, s: int, h: int, kv: int, hd: int,
+                     window: int | None, seed: int, reps: int = 5,
+                     fault: bool = False) -> dict:
+    """The flash kernel at a prefill's shape (causal, S = T, bf16) against
+    its plain version, timed beside it and beside SDPA; with ``fault``, a
+    planted fault (a window of S - 64 held against full causal) must fail
+    the row check.  With S <= window the window masks nothing, so SDPA with
+    ``is_causal`` is the same function."""
     import torch
 
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    b, s, h, kv, hd, win = RG_BATCH, RG_PROMPT, 10, 1, 256, 2048
+    gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev).to(torch.bfloat16)
                for n in (h, kv, kv))
-    got = flash_attention(q, k, v, causal=True, window=win)
+    got = flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    err, rel = row_check("flash_attention (hd 256, window 2048) against its plain version", got,
-                         attention_ref(q, k, v, causal=True, window=win))
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    err, rel = row_check(f"flash_attention ({what}) against its plain version", got, ref)
+    case = dict(shape=f"q ({b},{s},{h},{hd}) k/v ({b},{s},{kv},{hd}) bf16 causal window={window}",
+                max_abs_err=err, max_row_rel_err=rel)
+    note = ""
+    if fault:
+        # Planted fault: a window of s - 64 drops up to 64 keys (the first
+        # KV tile) from the last rows.
+        full = ref if window is None or window >= s else attention_ref(q, k, v, causal=True)
+        rel_f, bad_f = planted_fault(f"flash ({what}) without the first KV tile of the last rows",
+                                     flash_attention(q, k, v, causal=True, window=s - 64), full)
+        case["planted_fault_row_rel_err"] = rel_f
+        note = (f"; planted fault (first KV tile dropped for the last rows): row error "
+                f"{rel_f:.3e}, {bad_f} elements outside ATTN_TOL")
+    del got, ref
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = cuda_ms(lambda i: flash_attention(q, k, v, causal=True, window=win), reps)
-    plain = cuda_ms(lambda i: attention_ref(q, k, v, causal=True, window=win), 2)
+    ms = cuda_ms(lambda i: flash_attention(q, k, v, causal=True, window=window), reps)
+    plain = cuda_ms(lambda i: attention_ref(q, k, v, causal=True, window=window), 2)
     lib = cuda_ms(lambda i: sdpa(qt, kt, vt, is_causal=True), reps)
     flops = 4 * b * h * hd * (s * (s + 1) // 2)
     b_ms, b_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), flops, BF16_FLOPS_PER_S)
-    log(f"[kernel] flash_attention B={b} S={s} H={h} KV={kv} hd={hd} window={win} (CUDA cores): "
+    log(f"[kernel] flash_attention {what}: B={b} S={s} H={h} KV={kv} hd={hd} window={window}: "
         f"{ms:.4f} ms (plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
-        f"{flops / ms / 1e9:.1f} TFLOP/s), max_abs_err={err} max_row_rel_err={rel:.3e}")
-    return dict(shape=f"q ({b},{s},{h},{hd}) k/v ({b},{s},{kv},{hd}) bf16 causal window={win}",
-                max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by)
+        f"{flash_rate(b, s, h, hd, ms, b_ms)}), max_abs_err={err} max_row_rel_err={rel:.3e}"
+        f"{note}")
+    case.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    return case
 
 
 def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
@@ -1356,9 +1379,12 @@ LM_RUNS = (
     dict(arch=RG_ARCH, context=RG_CONTEXT, batch=RG_BATCH, prompt=RG_PROMPT,
          steps=RG_DECODE_STEPS, check_cycles=RG_CHECK_CYCLES, serve_context=RG_CONTEXT,
          serve=SERVE),
+    # The MoE check compares only rows whose last token no expert bucket
+    # dropped (check_prefill_decode), so it takes all 4 prompts: with 2, a
+    # change of the first decoded token left none to compare.
     dict(arch=MOE_ARCH, context=MOE_CONTEXT, batch=MOE_BATCH, prompt=MOE_PROMPT,
-         steps=MOE_DECODE_STEPS, check_cycles=CHECK_CYCLES, serve_context=MOE_SERVE_CONTEXT,
-         serve=SERVE),
+         steps=MOE_DECODE_STEPS, check_cycles=CHECK_CYCLES, check_rows=MOE_BATCH,
+         serve_context=MOE_SERVE_CONTEXT, serve=SERVE),
 )
 
 
@@ -1396,7 +1422,7 @@ def run_lm(dev, drive, spec: dict) -> tuple[dict, dict]:
     del run["cache"]
     lm.update(check_kernels_in_prefill(cfg, params, run))
     lm.update(check_prefill_decode(cfg, params, run, context=spec["context"],
-                                   cycles=spec["check_cycles"]))
+                                   cycles=spec["check_cycles"], rows=spec.get("check_rows", 2)))
     del run
     lm["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[lm] {cfg.name}: peak device memory {lm['peak_mem_gb']:.2f} GB of "
@@ -1467,7 +1493,12 @@ def main() -> int:
 
         kernels = routing_kernel_checks(dev)
         kernels.update(attention_kernel_checks(dev))
-        kernels["flash_attention"]["cases"].append(flash_hd256_case(dev))
+        flash_cases = kernels["flash_attention"]["cases"]
+        flash_cases.append(flash_timed_case(
+            dev, "Moonlight prefill", MOE_BATCH, MOE_PROMPT, 16, 16, 128, None, SEED + 2))
+        flash_cases.append(flash_timed_case(
+            dev, "RecurrentGemma prefill, hd 256", RG_BATCH, RG_PROMPT, 10, 1, 256, 2048,
+            SEED + 1, fault=True))
         kernels.update(scan_and_expert_kernel_checks(dev))
         gc.collect()
         torch.cuda.empty_cache()

@@ -48,6 +48,9 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
+#: Libraries, after the source on the command line: libcuda
+#: (``cuTensorMapEncodeTiled``, which builds TMA descriptors).
+LINK_FLAGS = ("-lcuda",)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -73,7 +76,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for header in HEADERS:
         digest.update(header.read_bytes())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
@@ -95,7 +98,7 @@ def build(names=None) -> dict[str, float]:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name]), *LINK_FLAGS]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
             tmp,

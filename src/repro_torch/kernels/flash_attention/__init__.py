@@ -1,3 +1,3 @@
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, kernel_path
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "kernel_path"]

@@ -3,9 +3,9 @@
 ``flash_attention(q, k, v, causal=True, window=None)`` takes q (B,S,H,hd)
 and k, v (B,T,KV,hd), contiguous, bf16 or f32, with H % KV == 0, and
 returns (B,S,H,hd) in q's dtype.  A CUDA tensor launches
-``csrc/flash_attention.cu`` on the current stream; a CPU tensor takes the
-plain version in :mod:`.ref`.  Nothing falls back: a launch that fails
-raises.
+``csrc/flash_attention.cu`` on the current stream, through the body that
+:func:`kernel_path` picks; a CPU tensor takes the plain version in
+:mod:`.ref`.  Nothing falls back: a launch that fails raises.
 """
 
 from __future__ import annotations
@@ -19,13 +19,29 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+#: bf16 head dims of the Hopper body (wgmma on a TMA-fed K/V ring).
+WGMMA_HEAD_DIMS = (64, 128, 256)
+#: bf16 head dims of the mma.sync body (the SMOKE configs).
+MMA_HEAD_DIMS = (16, 32)
+PATH_CODES = {"simt": 0, "mma": 1, "wgmma": 2}
+
+
+def kernel_path(dtype: torch.dtype, hd: int) -> str:
+    """The CUDA body that takes (dtype, head_dim): ``"wgmma"`` for bf16 at
+    hd 64, 128 and 256, ``"mma"`` for bf16 at hd 16 and 32, ``"simt"`` (f32
+    CUDA cores) for anything else."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS:
+        return "mma"
+    return "simt"
 
 
 def _lib():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -80,7 +96,7 @@ def flash_attention(
             lib.flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, s, t, h, kvh, hd, int(causal), -1 if window is None else window,
-                DTYPE_CODES[q.dtype], stream,
+                DTYPE_CODES[q.dtype], PATH_CODES[kernel_path(q.dtype, hd)], stream,
             ),
             "flash_attention",
         )

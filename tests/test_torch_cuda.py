@@ -139,7 +139,9 @@ def _close(out, ref, dtype):
     [(1, 256, 4, 2, 64, True, None), (2, 100, 8, 2, 16, True, None),
      (1, 300, 4, 4, 32, False, None), (1, 512, 8, 2, 64, True, 128),
      (2, 129, 32, 2, 128, True, None), (1, 200, 2, 1, 256, True, None),
-     (1, 64, 4, 2, 24, True, 7)],
+     (1, 64, 4, 2, 24, True, 7), (1, 2049, 10, 1, 256, True, 2048),
+     (2, 777, 16, 16, 128, True, None), (1, 300, 4, 1, 256, True, 100),
+     (2, 130, 8, 2, 64, True, None)],
 )
 def test_flash_kernel_matches_plain(cuda, b, s, h, kv, hd, causal, window, dtype):
     g = torch.Generator().manual_seed(s + h + hd)
@@ -149,6 +151,21 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kv, hd, causal, window, dtype
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == 1 and out.dtype == dtype
     _close(out, attention_ref(q, k, v, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("hd,h,kv", [(128, 16, 2), (256, 10, 1)])
+@pytest.mark.parametrize("s", [1, 70])
+def test_flash_kernel_queries_shorter_than_keys(cuda, s, hd, h, kv):
+    # chip_smoke.py's flash-vs-decode pairing: S queries over T = 2,064 keys,
+    # no causal mask, through the wgmma body.
+    g = torch.Generator().manual_seed(s + hd)
+    q = torch.randn(2, s, h, hd, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(2, 2064, kv, hd, generator=g).to(torch.bfloat16) for _ in range(2))
+    reset_launch_counts()
+    out = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=False)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    _close(out, attention_ref(q, k, v, causal=False), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])

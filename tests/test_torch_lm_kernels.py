@@ -41,6 +41,9 @@ from repro_torch.kernels import (
     rglru_scan,
 )
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.configs import all_configs
+from repro_torch.kernels.flash_attention import kernel_path
+from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
@@ -113,6 +116,27 @@ def test_flash_wrapper_on_cpu_is_plain(b, s, h, kv, hd, causal, window, dtype):
     out = flash_attention(tq, tk, tv, causal=causal, window=window)
     assert torch.equal(out, attention_ref(tq, tk, tv, causal=causal, window=window))
     assert launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize(
+    "dtype,hd,path",
+    [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+     (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 8, "simt"),
+     (torch.bfloat16, 24, "simt"), (torch.bfloat16, 48, "simt"), (torch.bfloat16, 96, "simt"),
+     (torch.bfloat16, 192, "simt"), (torch.float32, 16, "simt"), (torch.float32, 64, "simt"),
+     (torch.float32, 128, "simt"), (torch.float32, 256, "simt")],
+)
+def test_flash_kernel_path(dtype, hd, path):
+    assert kernel_path(dtype, hd) == path
+
+
+def test_flash_kernel_path_takes_every_config_to_wgmma():
+    # Every full-size config whose head dim the flash kernel takes runs
+    # its bf16 prefill through the wgmma body.
+    dims = {cfg.resolved_head_dim for cfg in all_configs().values()}
+    taken = {hd for hd in dims if hd <= MAX_HEAD_DIM}
+    assert taken == {64, 128, 256}
+    assert {kernel_path(torch.bfloat16, hd) for hd in taken} == {"wgmma"}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
