@@ -15,8 +15,9 @@ error or mismatch:
    the attention kernels and moe_gemm in bf16 at atol = rtol = 3e-2
    (tests/test_kernels.py's bf16 tolerance) and, per output row, within 1e-2
    of the plain version's norm, rglru_scan at atol = rtol = 1e-5 (the
-   reference's); a planted fault per kernel (a dropped KV tile or split, the
-   scan's carry reset halfway, a skipped K tile) must fail that check -- and
+   reference's); a planted fault per kernel (two equal codes swapped in the
+   sort's order, a dropped KV tile or split, the scan's carry reset halfway,
+   a skipped K slice) must fail that check -- and
    time kernel, plain version and the library yardstick with CUDA events,
    flash at the GLM, Moonlight and RecurrentGemma (head_dim 256) prefills'
    shapes, with a planted fault at head_dim 128 and at 256;
@@ -224,6 +225,7 @@ def routing_kernel_checks(dev, reps: int = 20) -> dict[str, dict]:
     from repro_torch.kernels import bucket_argsort, keygroup_partition
     from repro_torch.kernels.keygroup_partition import fold_keys64
     from repro_torch.kernels.keygroup_partition.ref import keygroup_partition_ref
+    from repro_torch.kernels.radix_sort.ops import plan as radix_plan
     from repro_torch.kernels.radix_sort.ref import bucket_argsort_ref
 
     gen = torch.Generator().manual_seed(SEED)
@@ -291,13 +293,27 @@ def routing_kernel_checks(dev, reps: int = 20) -> dict[str, dict]:
         check(err == 0, f"radix_sort ({dtype}, {nb} buckets) disagrees (err {err})")
         lib = torch.argsort(codes[0], stable=True)
         check(torch.equal(lib, order), "radix_sort disagrees with torch.argsort")
-        ms = cuda_ms(lambda i: bucket_argsort(codes[i % 8], nb), reps)
+        # Planted fault: the first two neighbours of equal code swapped.  The
+        # codes stay in order, so only a check of stability rejects it.
+        ranked = codes[0][order]
+        i = int((ranked[1:] == ranked[:-1]).nonzero()[0])
+        faulty = order.clone()
+        faulty[[i, i + 1]] = order[[i + 1, i]]
+        ranked = codes[0][faulty]
+        check(bool((ranked[1:] >= ranked[:-1]).all()), "the planted sort fault broke the order")
+        check(not torch.equal(faulty, ref), "the sort check passes a planted fault (two equal "
+              "codes swapped)")
+        passes, bits = radix_plan(nb)
+        ms = cuda_ms(lambda i: bucket_argsort(codes[i % 8], nb), 5 * reps)
         plain = cuda_ms(lambda i: bucket_argsort_ref(codes[i % 8], nb), max(3, reps // 5))
-        lib_ms = cuda_ms(lambda i: torch.argsort(codes[i % 8], stable=True), reps)
-        b_ms, b_by = bound_ms(BATCH * nbytes_code + BATCH * 8, BATCH * 4)
+        lib_ms = cuda_ms(lambda i: torch.argsort(codes[i % 8], stable=True), 5 * reps)
+        nbytes = BATCH * nbytes_code + BATCH * 8
+        b_ms, b_by = bound_ms(nbytes, BATCH * 4)
         cases.append(
             dict(
                 shape=f"codes ({BATCH},) {str(dtype).split('.')[-1]} in [0, {nb})",
+                passes=passes,
+                digit_bits=bits,
                 max_abs_err=float(err),
                 ms=ms,
                 plain_ms=plain,
@@ -307,9 +323,10 @@ def routing_kernel_checks(dev, reps: int = 20) -> dict[str, dict]:
             )
         )
         log(
-            f"[kernel] radix_sort n={BATCH} {dtype} nb={nb}: {ms:.4f} ms (plain "
-            f"{plain:.4f} ms, torch.argsort {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"by {b_by}), max_abs_err={err}"
+            f"[kernel] radix_sort n={BATCH} {dtype} nb={nb}, {passes} passes of {bits} bits: "
+            f"{ms:.4f} ms (plain {plain:.4f} ms, torch.argsort {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}; {nbytes / ms / 1e6:.1f} GB/s of the bound's bytes), "
+            f"max_abs_err={err}; planted fault (equal codes {i}, {i + 1} swapped) rejected"
         )
     main = dict(cases[0])
     main.update(
@@ -534,12 +551,14 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
       for the gate/up product (E, rows, 2048) x (E, 2048, 1408) and the
       down product (E, rows, 1408) x (E, 1408, 2048); x ~ N(0,1), w ~ 0.05
       N(0,1), at ATTN_TOL and ROW_RTOL per output row.  Planted fault: the
-      last 32-deep slice of the contraction (one K tile) skipped.  Library
-      yardstick: ``torch.bmm``.
+      last 32-deep slice of the contraction skipped.  Library yardstick:
+      ``torch.bmm``.  Then both tensor-core bodies at the row threshold of
+      ``kernel_path`` (``moe_row_threshold``).
     """
     import torch
 
     from repro_torch.kernels import moe_gemm, rglru_scan
+    from repro_torch.kernels.moe_gemm.ops import kernel_path as moe_kernel_path
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.models.moe import capacity
@@ -606,22 +625,25 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
         fault, fault_bad = planted_fault(
             "moe_gemm without its last 32-deep slice of the contraction",
             moe_gemm(x[..., : d - 32].contiguous(), wt[:, : d - 32].contiguous()), ref)
+        body = moe_kernel_path(e, rows, d, f, torch.bfloat16, True)
         ms = cuda_ms(lambda i: moe_gemm(x, wt), reps)
         plain = cuda_ms(lambda i: moe_gemm_ref(x, wt), max(2, reps // 5))
         lib = cuda_ms(lambda i: torch.bmm(x, wt), reps)
         flops = 2 * e * rows * d * f
         b_ms, b_by = bound_ms(2 * (x.numel() + wt.numel() + e * rows * f), flops,
                               BF16_FLOPS_PER_S)
-        log(f"[kernel] moe_gemm {label} ({e},{rows},{d})x({e},{d},{f}) bf16: {ms:.4f} ms (plain "
+        log(f"[kernel] moe_gemm {label} ({e},{rows},{d})x({e},{d},{f}) bf16, {body} body: "
+            f"{ms:.4f} ms (plain "
             f"{plain:.4f} ms, torch.bmm {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
             f"{flops / ms / 1e9:.1f} TFLOP/s), max_abs_err={err} max_row_rel_err={rel:.3e}; "
-            f"planted fault (last K tile skipped): row error {fault:.3e}, {fault_bad} elements "
-            f"outside ATTN_TOL")
-        cases.append(dict(shape=f"x ({e},{rows},{d}) w ({e},{d},{f}) bf16 ({label})",
+            f"planted fault (last 32-deep K slice skipped): row error {fault:.3e}, {fault_bad} "
+            f"elements outside ATTN_TOL")
+        cases.append(dict(shape=f"x ({e},{rows},{d}) w ({e},{d},{f}) bf16 ({label})", body=body,
                           max_abs_err=err, max_row_rel_err=rel, planted_fault_row_rel_err=fault,
                           ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
         del x, wt, got, ref
-    main = {k: v for k, v in cases[0].items() if k != "shape"}
+    threshold = moe_row_threshold(dev, gen, e, moe_cfg.d_model, moe_cfg.d_ff, reps)
+    main = {k: v for k, v in cases[0].items() if k not in ("shape", "body")}
     main.update(max_abs_err=max(c["max_abs_err"] for c in cases),
                 max_row_rel_err=max(c["max_row_rel_err"] for c in cases))
     out["moe_gemm"] = dict(
@@ -629,9 +651,52 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
         source="src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
         replaces="src/repro/kernels/moe_gemm/moe_gemm.py:49",
         cases=cases,
+        row_threshold=threshold,
         **main,
     )
     return out
+
+
+def moe_row_threshold(dev, gen, e: int, d_model: int, d_ff: int, reps: int) -> list[dict]:
+    """Both tensor-core bodies of moe_gemm, launched directly, at one row
+    below and at ``WGMMA_MIN_ROWS`` (the rows where ``kernel_path`` turns
+    from mma.sync to wgmma), for both products; each output is row-checked
+    against the plain version.  These launches bypass the wrapper's count."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+
+    lib = moe_ops._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows_out = []
+    for rows in (moe_ops.WGMMA_MIN_ROWS - 1, moe_ops.WGMMA_MIN_ROWS):
+        for d, f in ((d_model, d_ff), (d_ff, d_model)):
+            x = torch.randn(e, rows, d, generator=gen, device=dev).to(torch.bfloat16)
+            wt = (0.05 * torch.randn(e, d, f, generator=gen, device=dev)).to(torch.bfloat16)
+            ref = moe_gemm_ref(x, wt)
+            row = dict(rows=rows, d=d, f=f, chosen=moe_ops.kernel_path(
+                e, rows, d, f, torch.bfloat16, True))
+            for body in ("mma", "wgmma"):
+                got = torch.empty(e, rows, f, dtype=torch.bfloat16, device=dev)
+
+                def launch(i, body=body, got=got, x=x, wt=wt, d=d, f=f):
+                    _build.check(lib.moe_gemm_launch(
+                        x.data_ptr(), wt.data_ptr(), got.data_ptr(), e, rows, d, f,
+                        moe_ops.DTYPE_CODES[torch.bfloat16], moe_ops.PATH_CODES[body], stream),
+                        f"moe_gemm ({body} body)")
+
+                launch(0)
+                torch.cuda.synchronize()
+                row_check(f"moe_gemm's {body} body at {rows} rows", got, ref)
+                row[f"{body}_ms"] = cuda_ms(launch, reps)
+            log(f"[kernel] moe_gemm row threshold ({e},{rows},{d})x({e},{d},{f}): mma.sync body "
+                f"{row['mma_ms']:.4f} ms, wgmma body {row['wgmma_ms']:.4f} ms; kernel_path picks "
+                f"{row['chosen']}")
+            rows_out.append(row)
+            del x, wt, ref
+    return rows_out
 
 
 # --------------------------------------------------------------------- phase 3

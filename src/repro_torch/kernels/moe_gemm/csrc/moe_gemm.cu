@@ -12,35 +12,60 @@
 // shape's 8 rows and d_ff 1,408 (5.5 x 256) run as they are.
 //
 // The Pallas grid (E, C/bc, f/bf, d/bd) accumulates over its innermost,
-// sequential d axis in VMEM scratch.  Here one block owns one output tile
-// of one expert (blockIdx.z = expert) and loops over d itself, the sums in
-// registers.  Two paths:
-//  * bf16 with d and f multiples of 8 and 16-byte aligned tensors (every
-//    MoE config): tensor cores through `mma.sync.m16n8k16` (bf16 in, f32
-//    accumulate).  A block is 4 warps over a 64 x 128 tile, 32 x 64 per
-//    warp (2 x 8 fragments); each 32-deep slice of x and w is staged in
-//    shared memory with 16-byte loads, and fragments are read with
-//    `ldmatrix` (`.trans` for w, which is stored d-major: no transpose in
-//    memory).  The next slice's global loads are issued into registers
-//    before the current slice's products, so they overlap.
-//  * anything else (f32; bf16 with odd widths): a CUDA-core tile of 64 x 64
-//    per 256 threads, 4 x 4 outputs a thread, in f32 fmaf.
+// sequential d axis in VMEM scratch.  Here a block loops over d itself,
+// the sums in registers.  Three bodies; ops.kernel_path(e, c, d, f, dtype,
+// aligned) picks one and passes it here:
+//  * "wgmma", bf16 with d and f multiples of 8, 16-byte aligned tensors and
+//    at least ops.WGMMA_MIN_ROWS rows (the prefill): Hopper's warpgroup
+//    products on a ring of tiles that TMA brings into shared memory.  A
+//    block of 384 threads has one producer warp, whose one thread issues
+//    the TMA copies into 4 slots of 48 KB (64 deep: x's 256 rows and w's
+//    128 columns), each with a "full" and an "empty" mbarrier, and two
+//    consumer warpgroups, each running wgmma.m64n128k16 on a 128 x 128
+//    output tile (two m64 halves) of the block's 256 x 128.  Each consumer
+//    keeps one slice's products in flight while it issues the next.  x
+//    (E,C,d) is the K-major A operand (128-byte swizzle); w (E,d,f) is read
+//    MN-major through wgmma's transpose bit (LBO = one 64-column box, SBO =
+//    1,024 bytes), so no transposed copy of the weights is made.  The
+//    tensor maps are rank 3 over (inner dim, rows, E): rows past C and
+//    depth past d read zeros from inside their own expert, never the next
+//    expert's rows.  A half whose 64 rows all lie past C issues no products
+//    (C = 960 is 3.75 tiles).  The kernel is persistent: one block per SM
+//    walks the (expert, m tile, n tile) items, and the ring runs on across
+//    items, so one tile's epilogue overlaps the next tile's loads.  Each
+//    m64 half of the output goes out through a 16 KB staging tile per
+//    consumer and TMA stores, which clip at C and f and run on beside the
+//    next half and the next item's products (stores of 4 bytes a thread
+//    straight from the fragments took several times as long in
+//    development builds).  setmaxnreg hands the producer's registers to
+//    the consumers.
+//  * "mma", the same bf16 inputs with fewer rows (decode and serve: 4 or 8
+//    rows per expert, byte-bound): `mma.sync.m16n8k16`.  A block is 4 warps
+//    over a 64 x 128 tile of one expert (blockIdx.z), 32 x 64 per warp
+//    (2 x 8 fragments); each 32-deep slice of x and w is staged in shared
+//    memory with 16-byte loads, and fragments are read with `ldmatrix`
+//    (`.trans` for w, which is stored d-major).  The next slice's global
+//    loads are issued into registers before the current slice's products,
+//    so they overlap.
+//  * "simt", anything else (f32; bf16 with odd widths or misaligned): a
+//    CUDA-core tile of 64 x 64 per 256 threads, 4 x 4 outputs a thread, in
+//    f32 fmaf.
 //
 // Bound on an H100, at Moonlight-16B-A3B's shapes (E=64, d=2048, f=1408):
 //  * prefill, 4 prompts of 2,048 tokens, capacity 240 per row, rows folded
 //    into C = 960: 2*E*C*d*f = 3.54e11 FLOP, 0.358 ms at 989 TFLOP/s (bf16
-//    dense), against 0.18 ms for its 540 MB -- operations;
+//    dense), against 0.24 ms for its 794 MB -- operations;
 //  * decode, C = 8 (one slot per row): 369 MB of expert weights read once,
 //    0.110 ms at 3.35 TB/s -- bytes.
-// `mma.sync` without TMA, `wgmma`, a deeper pipeline or a persistent
-// schedule reaches a fraction of the tensor cores' peak; those are later
-// work.
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "../../csrc/common.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace {
 
@@ -264,23 +289,245 @@ cudaError_t launch_simt(const void* x, const void* w, void* out, int e, int c, i
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- wgmma
+constexpr int kWgRows = 128;              // output rows per consumer warpgroup: two m64 halves
+constexpr int kWgBM = 2 * kWgRows;        // rows per tile
+constexpr int kWgBN = 128;                // columns per tile: wgmma's N
+constexpr int kWgBK = 64;                 // depth per ring slot: one 128-byte swizzle row
+constexpr int kWgThreads = 3 * 128;       // producer + two consumer warpgroups
+constexpr int kWgStages = 4;
+// An SM sub-partition holds 3 of the block's 12 warps in 16,384 registers:
+// 168 a thread at launch, or 40 for the producer and 232 for the consumers
+// (whose two 64 x 128 accumulators take 128).
+constexpr int kWgProducerRegs = 40, kWgConsumerRegs = 232;
+constexpr int kBoxCols = 64;              // bf16 per TMA box row (128 bytes)
+constexpr int kRowBytes = kBoxCols * 2;
+constexpr int kHalfBytes = 64 * kRowBytes;           // 64 rows of x, 64 deep: 8 KB
+constexpr int kABytes = kWgBM * kRowBytes;           // x: 256 rows x 64 deep, 32 KB
+constexpr int kBBox = kWgBK * kRowBytes;             // w: 64 deep x 64 columns, 8 KB
+constexpr int kBBytes = (kWgBN / kBoxCols) * kBBox;  // w: 64 deep x 128 columns
+constexpr int kStageBytes = kABytes + kBBytes;       // 48 KB
+constexpr int kOutBox = 64 * kRowBytes;              // out: 64 rows x 64 columns, 8 KB
+constexpr int kOutWg = (kWgBN / kBoxCols) * kOutBox; // a consumer's staging: one m64 half
+constexpr int kOutOff = kWgStages * kStageBytes;
+constexpr int kBarOff = kOutOff + 2 * kOutWg;
+constexpr int kWgSmem = kBarOff + 2 * kWgStages * 8 + 1024;  // + alignment slack: 225 KB
+
+struct WgItem {
+  int e, m0, n0;
+};
+
+// Item w: experts in order (the weights of the experts in flight stay in
+// L2), then m tiles, then n tiles.
+__device__ __forceinline__ WgItem wg_item(int w, int mt, int nt) {
+  WgItem it;
+  it.e = w / (mt * nt);
+  it.m0 = (w / nt % mt) * kWgBM;
+  it.n0 = (w % nt) * kWgBN;
+  return it;
+}
+
+// A consumer's products over one item's nk slices of depth, on one (TWO =
+// false) or both of its m64 halves; `it` counts the ring's slices.  Each
+// branch is one straight run of wgmma, so ptxas adds no fences of its own.
+template <bool TWO>
+__device__ __forceinline__ void consume(float (&acc0)[kWgBN / 2], float (&acc1)[kWgBN / 2],
+                                        const uint8_t* smem, uint64_t* full, uint64_t* empty,
+                                        int cw, int nk, int& it) {
+  for (int kb = 0; kb < nk; ++kb, ++it) {
+    const int s = it % kWgStages;
+    hopper::mbar_wait(&full[s], (it / kWgStages) & 1);
+    // A k16 step kk is 32 bytes into x's rows and 16 rows (2 KB) down w's.
+    const uint8_t* stage = smem + s * kStageBytes;
+    const uint64_t da =
+        hopper::desc_sw128(hopper::smem_u32(stage + 2 * cw * kHalfBytes), 16, 1024);
+    const uint64_t db = hopper::desc_sw128(hopper::smem_u32(stage + kABytes), kBBox, 1024);
+    hopper::fence_regs(acc0);
+    if (TWO) hopper::fence_regs(acc1);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) {
+      const uint64_t dbk = db + ((kk * 16 * kRowBytes) >> 4);
+      hopper::wgmma_ss_tb<kWgBN>(acc0, da + ((kk * 32) >> 4), dbk, kb > 0 || kk > 0);
+      if (TWO)
+        hopper::wgmma_ss_tb<kWgBN>(acc1, da + ((kHalfBytes + kk * 32) >> 4), dbk,
+                                   kb > 0 || kk > 0);
+    }
+    hopper::wgmma_commit();
+    // The previous slice's products are done: its slot may refill.
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(acc0);
+    if (TWO) hopper::fence_regs(acc1);
+    if (kb > 0) hopper::mbar_arrive(&empty[(it - 1) % kWgStages]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc0);
+  if (TWO) hopper::fence_regs(acc1);
+  hopper::mbar_arrive(&empty[(it - 1) % kWgStages]);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w,
+                          const __grid_constant__ CUtensorMap tm_o, int e_count, int c, int d,
+                          int f) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* empty = full + kWgStages;
+  const int mt = (c + kWgBM - 1) / kWgBM, nt = (f + kWgBN - 1) / kWgBN;
+  const int n_items = e_count * mt * nt, nk = (d + kWgBK - 1) / kWgBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);  // every consumer thread arrives
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The ring's slots and phases run on across items (`it` counts k slices).
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full.
+    hopper::setmaxnreg_dec<kWgProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        const WgItem item = wg_item(w, mt, nt);
+        // w's second 64-column box lies wholly past f on a ragged last n
+        // tile: it is not loaded (its stale columns feed only outputs that
+        // are not stored).
+        const int boxes = item.n0 + kBoxCols < f ? 2 : 1;
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % kWgStages;
+          hopper::mbar_wait(&empty[s], ((it / kWgStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], kABytes + boxes * kBBox);
+          uint8_t* stage = smem + s * kStageBytes;
+          hopper::tma_load_3d(stage, &tm_x, &full[s], kb * kWgBK, item.m0, item.e);
+          for (int bx = 0; bx < boxes; ++bx)
+            hopper::tma_load_3d(stage + kABytes + bx * kBBox, &tm_w, &full[s],
+                                item.n0 + bx * kBoxCols, kb * kWgBK, item.e);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 128 rows of each tile, as two m64 halves.
+    hopper::setmaxnreg_inc<kWgConsumerRegs>();
+    const int cw = wg - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+    // Accumulator fragments (wgmma's D layout): acc[h] entry 4n + 2*half +
+    // e holds row 64 h + 16 warp + g + 8 half, column 8n + 2q + e.
+    float acc0[kWgBN / 2], acc1[kWgBN / 2];
+    int it = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+      const WgItem item = wg_item(w, mt, nt);
+      const int row0 = item.m0 + cw * kWgRows;
+      // Halves whose 64 rows all lie past C issue no products.
+      const int halves = row0 >= c ? 0 : row0 + 64 >= c ? 1 : 2;
+      if (halves == 0) {  // let the slices pass
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          hopper::mbar_wait(&full[it % kWgStages], (it / kWgStages) & 1);
+          hopper::mbar_arrive(&empty[it % kWgStages]);
+        }
+        continue;
+      }
+      if (halves == 2)
+        consume<true>(acc0, acc1, smem, full, empty, cw, nk, it);
+      else
+        consume<false>(acc0, acc1, smem, full, empty, cw, nk, it);
+
+      // Each m64 half goes out through this consumer's staging tile, in the
+      // TMA box layout, and one TMA store per 64-column box, which clips at
+      // C and f.  The store runs on while the next half is written (once
+      // it has read the tile) and while the next item's products run.
+      uint8_t* stage_out = smem + kOutOff + cw * kOutWg;
+      auto put = [&](const float(&a)[kWgBN / 2], int r_base) {
+        if (tid == 0) hopper::tma_store_wait_read<0>();
+        hopper::bar_sync(1 + cw, 128);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = warp * 16 + g + 8 * half;
+#pragma unroll
+          for (int n = 0; n < kWgBN / 8; ++n) {
+            const int byte =
+                (n / 8) * kOutBox + r * kRowBytes + (((n % 8) ^ (r % 8)) * 16) + q * 4;
+            *reinterpret_cast<__nv_bfloat162*>(stage_out + byte) =
+                __floats2bfloat162_rn(a[4 * n + 2 * half], a[4 * n + 2 * half + 1]);
+          }
+        }
+        hopper::fence_proxy_async();
+        hopper::bar_sync(1 + cw, 128);
+        if (tid == 0) {
+          for (int bx = 0; bx < kWgBN / kBoxCols; ++bx)
+            if (item.n0 + bx * kBoxCols < f)
+              hopper::tma_store_3d(&tm_o, stage_out + bx * kOutBox, item.n0 + bx * kBoxCols,
+                                   r_base, item.e);
+          hopper::tma_store_commit();
+        }
+      };
+      put(acc0, row0);
+      if (halves == 2) put(acc1, row0 + 64);
+    }
+    if (tid == 0) hopper::tma_store_wait_all();
+  }
+}
+
+// A rank-3 map (inner, rows, mats) of a contiguous bf16 tensor, boxes of 64
+// x box_rows x 1 with 128-byte swizzle; reads past an edge give zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int inner, int rows, int mats, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)mats};
+  const cuuint64_t row = (cuuint64_t)inner * sizeof(bf16);
+  const cuuint64_t strides[2] = {row, row * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_wgmma(const void* x, const void* w, void* out, int e, int c, int d, int f,
+                         cudaStream_t st) {
+  CUtensorMap mx, mw, mo;
+  if (!encode_map(&mx, x, d, c, e, kWgBM) || !encode_map(&mw, w, f, d, e, kWgBK) ||
+      !encode_map(&mo, out, f, c, e, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(moe_gemm_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const long long items =
+      (long long)e * ((c + kWgBM - 1) / kWgBM) * ((f + kWgBN - 1) / kWgBN);
+  moe_gemm_wgmma_kernel<<<(int)std::min<long long>(items, sms), kWgThreads, kWgSmem, st>>>(
+      mx, mw, mo, e, c, d, f);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// path: 0 = simt, 1 = mma, 2 = wgmma (ops.kernel_path); dtype: 0 = float32,
+// 1 = bfloat16.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a path that does not take the input,
+// cudaErrorMisalignedAddress for a tensor core path given a misaligned one).
 extern "C" int moe_gemm_launch(const void* x, const void* w, void* out, int e, int c, int d, int f,
-                               int dtype, void* stream) {
+                               int dtype, int path, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1) {
-    if (d % 8 == 0 && f % 8 == 0 && aligned16(x) && aligned16(w) && aligned16(out)) {
-      dim3 grid((f + kBN - 1) / kBN, (c + kBM - 1) / kBM, e);
-      moe_gemm_mma_kernel<<<grid, kThreads, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out,
-                                                     c, d, f);
-      return (int)cudaGetLastError();
-    }
-    return (int)launch_simt<bf16>(x, w, out, e, c, d, f, st);
-  }
-  if (dtype == 0) return (int)launch_simt<float>(x, w, out, e, c, d, f, st);
-  return (int)cudaErrorInvalidValue;
+  if (path == 0 && dtype == 0) return (int)launch_simt<float>(x, w, out, e, c, d, f, st);
+  if (path == 0 && dtype == 1) return (int)launch_simt<bf16>(x, w, out, e, c, d, f, st);
+  if (dtype != 1 || d % 8 != 0 || f % 8 != 0 || (path != 1 && path != 2))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(w) || !aligned16(out)) return (int)cudaErrorMisalignedAddress;
+  if (path == 2) return (int)launch_wgmma(x, w, out, e, c, d, f, st);
+  dim3 grid((f + kBN - 1) / kBN, (c + kBM - 1) / kBM, e);
+  moe_gemm_mma_kernel<<<grid, kThreads, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out, c,
+                                                 d, f);
+  return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 ``moe_gemm(x, w)`` takes x (E,C,d) and w (E,d,f), contiguous, both bf16 or
 both f32, and returns (E,C,f) in x's dtype with f32 accumulation.  Any C,
 d and f are taken (the kernel masks ragged edges).  A CUDA tensor launches
-``csrc/moe_gemm.cu`` on the current stream; a CPU tensor takes the plain
-version in :mod:`.ref`.  Nothing falls back: a launch that fails raises.
+``csrc/moe_gemm.cu`` on the current stream, through the body that
+:func:`kernel_path` picks; a CPU tensor takes the plain version in
+:mod:`.ref`.  Nothing falls back: a launch that fails raises.
 """
 
 from __future__ import annotations
@@ -17,13 +18,31 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PATH_CODES = {"simt": 0, "mma": 1, "wgmma": 2}
+#: Fewest rows per expert that take the wgmma body.  Up to 64 rows (decode
+#: and serve: 4 or 8) the product is byte-bound and the mma.sync body, one
+#: 64-row tile deep, reads the weights faster; from 65 rows it needs a
+#: second tile and the wgmma body's 256-row tiles win (chip_smoke.py phase
+#: 2 times both bodies at 64 and 65 rows; PERF.md).
+WGMMA_MIN_ROWS = 65
+
+
+def kernel_path(e: int, c: int, d: int, f: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The CUDA body that takes x (e,c,d) @ w (e,d,f): ``"wgmma"`` for bf16
+    with d and f multiples of 8, 16-byte-aligned tensors and at least
+    :data:`WGMMA_MIN_ROWS` rows; ``"mma"`` for the same with fewer rows;
+    ``"simt"`` (f32 CUDA cores) for anything else."""
+    del e  # every expert count takes the same body
+    if dtype != torch.bfloat16 or d % 8 or f % 8 or not aligned:
+        return "simt"
+    return "wgmma" if c >= WGMMA_MIN_ROWS else "mma"
 
 
 def _lib():
     lib = _build.load("moe_gemm")
     fn = lib.moe_gemm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -55,12 +74,14 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((e, c, f), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(
             lib.moe_gemm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
-                                DTYPE_CODES[x.dtype], stream),
+                                DTYPE_CODES[x.dtype],
+                                PATH_CODES[kernel_path(e, c, d, f, x.dtype, aligned)], stream),
             "moe_gemm",
         )
     moe_gemm.launches += 1

@@ -3,15 +3,22 @@
 ``bucket_argsort(codes, num_buckets)`` returns the int64 permutation
 ``np.argsort(codes, kind="stable")`` would, for codes in
 ``[0, num_buckets)`` — the engine's ``(node, key group)`` composite sort.
-A CUDA tensor launches the two passes of ``csrc/radix_sort.cu`` with the
-exclusive scan between them as ``torch.cumsum`` glue; a CPU tensor takes
-the plain version in :mod:`.ref`.  Nothing falls back: a launch that fails
-raises.
+A CUDA tensor runs the LSD radix passes of ``csrc/radix_sort.cu`` (one
+scratch allocation, one C call); a CPU tensor takes the plain version in
+:mod:`.ref`.  Nothing falls back: a launch that fails raises.
+
+Codes outside ``[0, num_buckets)`` are skipped on the card: the in-range
+codes' order fills the first slots and the remaining slots are left
+unwritten.  int64 codes are clamped to ``[-1, num_buckets]`` and narrowed
+to int32 first, so an out-of-range code stays out of range.  With
+``num_buckets == 1`` no pass runs and the order is ``arange(n)``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -20,38 +27,61 @@ from repro_torch.kernels.radix_sort.ref import bucket_argsort_ref
 
 _CODE_DTYPES = (torch.int16, torch.int32, torch.int64)
 
-#: Upper bound on the per-block histogram table (nblocks × num_buckets
-#: int32): keeps it in the tens of MB at the engine's bucket counts.
-TABLE_BYTES = 32 << 20
-#: Fewest codes a block's chunk holds (one warp walks it in the rank pass).
-MIN_CHUNK = 1024
+#: Widest digit of a pass (a 256-bin histogram per block).
+MAX_DIGIT_BITS = 8
+#: Codes per tile of a pass kernel (``kTile`` in csrc/radix_sort.cu).
+TILE = 8192
+#: Look-back status words per tile and pass (``kRadix``), 8 bytes each.
+_RADIX = 1 << MAX_DIGIT_BITS
+#: Scratch bytes before the status words: four 256-bin histograms and the
+#: per-pass tile counters (``kStatusOff``).
+_STATUS_OFF = 4 * _RADIX * 4 + 256
 
 
-def plan(n: int, num_buckets: int) -> tuple[int, int]:
-    """(nblocks, chunk) for ``n`` codes over ``num_buckets`` buckets."""
-    max_blocks = max(1, TABLE_BYTES // (4 * num_buckets))
-    nblocks = max(1, min(-(-n // MIN_CHUNK), max_blocks))
-    chunk = -(-n // nblocks)
-    return -(-n // chunk), chunk
+def plan(num_buckets: int) -> tuple[int, int]:
+    """(passes, bits per pass) of the LSD sort of codes in
+    ``[0, num_buckets)``: ``ceil(bits / 8)`` passes of ``ceil(bits /
+    passes)`` bits, where ``bits = (num_buckets - 1).bit_length()``; (0, 0)
+    for a single bucket."""
+    bits = (int(num_buckets) - 1).bit_length()
+    if bits == 0:
+        return 0, 0
+    passes = -(-bits // MAX_DIGIT_BITS)
+    return passes, -(-bits // passes)
+
+
+def _align256(nbytes: int) -> int:
+    return (nbytes + 255) & ~255
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_bytes(n: int, code_bytes: int, passes: int) -> int:
+    """Bytes of the kernel's scratch buffer: histograms, tile counters and
+    look-back status words (zeroed by the kernel's one memset), then the
+    ping-pong key and index buffers of the passes before the last."""
+    tiles = -(-n // TILE)
+    keys_off = _align256(_STATUS_OFF + passes * tiles * _RADIX * 8)
+    buffers = min(passes - 1, 2)
+    return keys_off + buffers * (_align256(n * code_bytes) + _align256(n * 4))
 
 
 def _lib():
     lib = _build.load("radix_sort")
-    for name, extra in (
-        ("radix_sort_hist_launch", 1),
-        ("radix_sort_rank_launch", 2),
-    ):
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = [
-                ctypes.c_void_p,
-                ctypes.c_int,
-                ctypes.c_longlong,
-                ctypes.c_longlong,
-                ctypes.c_int,
-                ctypes.c_int,
-            ] + [ctypes.c_void_p] * (extra + 1)
-            fn.restype = ctypes.c_int
+    fn = lib.radix_sort_launch
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_int,
+            ctypes.c_longlong,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_void_p,
+            ctypes.c_longlong,
+            ctypes.c_void_p,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -79,30 +109,32 @@ def bucket_argsort(codes: torch.Tensor, num_buckets: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {dev}")
     if not codes.is_contiguous():
         raise ValueError("codes must be contiguous")
+    passes, bits = plan(num_buckets)
+    if passes == 0:
+        return torch.arange(n, dtype=torch.int64, device=dev)
     if codes.dtype == torch.int64:
-        codes = codes.to(torch.int32)
-    nblocks, chunk = plan(n, num_buckets)
-    lib = _lib()
-    table = torch.empty(nblocks * num_buckets, dtype=torch.int32, device=dev)
+        codes = codes.clamp(-1, num_buckets).to(torch.int32)
+    size = scratch_bytes(n, codes.element_size(), passes)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
     order = torch.empty(n, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        args = (codes.data_ptr(), codes.element_size(), n, chunk, nblocks, num_buckets)
+    # A sort of 2^20 codes takes tens of microseconds on the card, so the
+    # host's share counts: the raw stream handle, and a device switch only
+    # when the codes lie on another card than the current one.
+    index = codes.get_device()
+    switch = index != torch.cuda.current_device()
+    with torch.cuda.device(index) if switch else contextlib.nullcontext():
         _build.check(
-            lib.radix_sort_hist_launch(*args, table.data_ptr(), stream),
-            "radix_sort (histogram pass)",
-        )
-        # Exclusive scan of the bucket-major table: each (bucket, block)
-        # slot's first output rank.
-        base = torch.cumsum(table, 0, dtype=torch.int32)
-        base -= table
-        _build.check(
-            lib.radix_sort_rank_launch(*args, base.data_ptr(), order.data_ptr(), stream),
-            "radix_sort (rank pass)",
+            _lib().radix_sort_launch(
+                codes.data_ptr(), codes.element_size(), n, num_buckets, passes, bits,
+                scratch.data_ptr(), size, order.data_ptr(),
+                torch._C._cuda_getCurrentRawStream(index),
+            ),
+            "radix_sort",
         )
     bucket_argsort.launches += 1
     return order
 
 
-#: Kernel launches (histogram + rank pass pairs) since the last reset.
+#: Sorts launched on the card (each one memset, histogram and pass
+#: kernels) since the last reset.
 bucket_argsort.launches = 0

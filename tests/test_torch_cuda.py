@@ -6,11 +6,13 @@ Job 3 run on the card against the port's CPU engine.  The attention kernels
 are held against their plain versions at small shapes, in bf16 and f32, at
 ``tests/test_kernels.py``'s tolerances (f32 3e-5; bf16 3e-2, which also
 covers the flash kernel's bf16 rounding of P before P·V), and one GLM-4-9B
-SMOKE decode step on the card against ``device="cpu"``.  The RG-LRU scan is
-held bit for bit against its plain version (both round each product and sum
-to f32), the expert matmul at the bf16/f32 tolerances above, at ragged and
-full shapes, and RecurrentGemma and Moonlight SMOKE prefill + decode on the
-card against ``device="cpu"``.  Without a card every test here skips.  On
+SMOKE decode step on the card against ``device="cpu"``.  The radix sort is
+also held on adversarial orders, across tile edges and back to back on one
+stream.  The RG-LRU scan is held bit for bit against its plain version
+(both round each product and sum to f32), the expert matmul at the bf16/f32
+tolerances above, at ragged and full shapes and once per body of
+``kernel_path``, and RecurrentGemma and Moonlight SMOKE prefill + decode on
+the card against ``device="cpu"``.  Without a card every test here skips.  On
 the card: ``python -m pytest -m gpu tests/test_torch_cuda.py`` (this file
 imports neither jax nor the reference package).
 """
@@ -35,7 +37,9 @@ from repro_torch.kernels.keygroup_partition import fold_keys64
 from repro_torch.kernels.keygroup_partition.ref import keygroup_partition_ref
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.moe_gemm.ops import kernel_path
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.kernels.radix_sort.ops import plan as radix_plan
 from repro_torch.kernels.radix_sort.ref import bucket_argsort_ref
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -78,14 +82,21 @@ def test_partition_kernel_matches_plain(cuda, n, nkg, base, dtype):
     "n,nb,dtype",
     [(1, 1, torch.int32), (7, 3, torch.int32), (513, 16, torch.int32),
      (1024, 2, torch.int16), (2000, 257, torch.int32), (5000, 70_000, torch.int64),
-     (1 << 20, 16_000, torch.int16), (1 << 20, 40_000, torch.int32)],
+     (1 << 20, 16_000, torch.int16), (1 << 20, 40_000, torch.int32),
+     # Less than one tile (8,192 codes), either side of one tile, not a
+     # multiple of the tile, and the digit widths of 1, 256, 257, 65,536
+     # and 70,000 buckets.
+     (100, 256, torch.int16), (8191, 2, torch.int32), (8193, 257, torch.int16),
+     (50_000, 1, torch.int32), (100_001, 256, torch.int32), (100_001, 257, torch.int32),
+     (200_000, 65_536, torch.int32), (300_007, 70_000, torch.int64)],
 )
 def test_sort_kernel_matches_plain(cuda, n, nb, dtype):
     g = torch.Generator().manual_seed(n + nb)
     codes = torch.randint(0, nb, (n,), generator=g).to(dtype)
     reset_launch_counts()
     order = bucket_argsort(codes.to(cuda), nb)
-    assert launch_counts()["radix_sort"] == 1
+    # One bucket needs no pass: the order is arange, and nothing launches.
+    assert launch_counts()["radix_sort"] == (1 if nb > 1 else 0)
     assert torch.equal(order.cpu(), bucket_argsort_ref(codes, nb))
 
 
@@ -93,6 +104,48 @@ def test_sort_kernel_all_equal_and_empty(cuda):
     codes = torch.full((5000,), 3, dtype=torch.int16, device=cuda)
     assert torch.equal(bucket_argsort(codes, 4).cpu(), torch.arange(5000))
     assert bucket_argsort(torch.empty(0, dtype=torch.int32, device=cuda), 4).numel() == 0
+
+
+@pytest.mark.parametrize("nb", [256, 65_536, 70_000])
+@pytest.mark.parametrize("kind", ["one_digit", "sorted", "reversed", "all_equal"])
+def test_sort_kernel_adversarial_orders(cuda, kind, nb):
+    """Every code in one digit of the first pass (its look-back carries one
+    digit's whole count and every warp's lanes match), already sorted,
+    reverse sorted, all equal."""
+    n = 250_000
+    g = torch.Generator().manual_seed(nb)
+    if kind == "one_digit":
+        bits = radix_plan(nb)[1]
+        codes = (torch.randint(0, nb >> bits, (n,), generator=g) << bits) + 5
+    elif kind == "sorted":
+        codes = torch.sort(torch.randint(0, nb, (n,), generator=g)).values
+    elif kind == "reversed":
+        codes = torch.sort(torch.randint(0, nb, (n,), generator=g), descending=True).values
+    else:
+        codes = torch.full((n,), nb - 1)
+    codes = codes.to(torch.int32)
+    order = bucket_argsort(codes.to(cuda), nb)
+    assert torch.equal(order.cpu(), bucket_argsort_ref(codes, nb))
+
+
+def test_sort_kernel_back_to_back_on_one_stream(cuda):
+    """Two sorts queued without a sync in between (and a third of another
+    size): each starts from its own clean look-back state."""
+    g = torch.Generator().manual_seed(7)
+    a = torch.randint(0, 16_000, (1 << 20,), generator=g).to(torch.int16)
+    b = torch.randint(0, 16_000, (1 << 20,), generator=g).to(torch.int16)
+    c = torch.randint(0, 40_000, (12_345,), generator=g).to(torch.int32)
+    orders = [bucket_argsort(x.to(cuda), nb) for x, nb in ((a, 16_000), (b, 16_000), (c, 40_000))]
+    torch.cuda.synchronize()
+    for x, nb, order in zip((a, b, c), (16_000, 16_000, 40_000), orders):
+        assert torch.equal(order.cpu(), bucket_argsort_ref(x, nb))
+
+
+def test_sort_kernel_skips_out_of_range_codes(cuda):
+    """Codes outside [0, nb) take no slot: the in-range ones fill the first."""
+    codes = torch.tensor([5, -1, 2, 9, 2, 0, 7], dtype=torch.int32)
+    order = bucket_argsort(codes.to(cuda), 6).cpu()
+    assert order[:4].tolist() == [5, 2, 4, 0]
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -236,7 +289,13 @@ def test_rglru_scan_kernel_matches_plain_bitwise(cuda, b, s, w, dtype):
 @pytest.mark.parametrize(
     "e,c,d,f",
     [(4, 128, 256, 128), (8, 64, 128, 256), (2, 256, 512, 128), (3, 5, 72, 44),
-     (2, 70, 136, 200), (1, 1, 8, 8), (64, 8, 2048, 1408), (2, 33, 2048, 1408)],
+     (2, 70, 136, 200), (1, 1, 8, 8), (64, 8, 2048, 1408), (2, 33, 2048, 1408),
+     # wgmma: ragged m tiles across experts (129 rows; 33 above runs
+     # mma.sync), ragged depth (d = 72), a last n tile with one box (f =
+     # 1,096 = 8.5 x 128), more items than SMs (E = 140), and the prefill's
+     # shape.
+     (3, 129, 256, 384), (4, 65, 72, 128), (2, 96, 1408, 1096), (140, 65, 128, 128),
+     (64, 960, 2048, 1408)],
 )
 def test_moe_gemm_kernel_matches_plain(cuda, e, c, d, f, dtype):
     g = torch.Generator().manual_seed(e + c + d + f)
@@ -247,6 +306,31 @@ def test_moe_gemm_kernel_matches_plain(cuda, e, c, d, f, dtype):
     torch.cuda.synchronize()
     assert launch_counts()["moe_gemm"] == 1 and out.shape == (e, c, f) and out.dtype == dtype
     _close(out, moe_gemm_ref(x, w), dtype)
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize(
+    "e,c,d,f,dtype,path",
+    [(64, 960, 2048, 1408, BF16, "wgmma"), (2, 97, 2048, 1408, BF16, "wgmma"),
+     (3, 129, 72, 136, BF16, "wgmma"), (140, 70, 64, 128, BF16, "wgmma"),
+     (2, 33, 2048, 1408, BF16, "mma"), (64, 8, 2048, 1408, BF16, "mma"),
+     (64, 4, 1408, 2048, BF16, "mma"), (2, 70, 136, 200, torch.float32, "simt")],
+)
+def test_moe_gemm_kernel_each_body(cuda, e, c, d, f, dtype, path):
+    """One case per body of ``kernel_path``, each row held to 1e-2 of its
+    norm as well (chip_smoke.py's row check), with the wrapper's choice
+    pinned."""
+    assert kernel_path(e, c, d, f, dtype, True) == path
+    g = torch.Generator(device=cuda).manual_seed(e * c + d + f)
+    x = torch.randn(e, c, d, generator=g, device=cuda).to(dtype)
+    w = (0.05 * torch.randn(e, d, f, generator=g, device=cuda)).to(dtype)
+    out = moe_gemm(x, w)
+    ref = moe_gemm_ref(x, w)
+    _close(out, ref, dtype)
+    rel = ((out.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1)).max()
+    assert float(rel) <= 1e-2
 
 
 def test_moe_gemm_kernel_takes_misaligned_tensors(cuda):

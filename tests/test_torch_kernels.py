@@ -12,7 +12,8 @@ Both kernels compute integers, so no tolerance applies anywhere here:
 * ``bucket_argsort`` — the port's plain version against the reference's
   ``bucket_argsort_pallas(interpret=True)`` and ``np.argsort(kind=
   "stable")``, over the shapes of ``tests/test_radix_sort.py`` plus the
-  engine's int16 and wide composites.
+  engine's int16 and wide composites; and the CUDA sort's plan (passes and
+  digit widths) and scratch layout, which are plain Python.
 
 The CUDA kernels themselves run only on the card: ``tests/test_torch_cuda.py``
 holds them against these plain versions there.
@@ -46,6 +47,9 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.keygroup_partition import fold_keys64
 from repro_torch.kernels.keygroup_partition.ref import keygroup_partition_ref
+from repro_torch.kernels.radix_sort.ops import TILE as RADIX_TILE
+from repro_torch.kernels.radix_sort.ops import plan as radix_plan
+from repro_torch.kernels.radix_sort.ops import scratch_bytes as radix_scratch_bytes
 from repro_torch.kernels.radix_sort.ref import bucket_argsort_ref
 
 
@@ -190,6 +194,40 @@ def test_sort_ref_is_stable_on_heavy_duplicates():
         bucket_argsort_ref(torch.from_numpy(codes), 3).numpy(),
         np.argsort(codes, kind="stable"),
     )
+
+
+@pytest.mark.parametrize(
+    "nb,passes,bits",
+    [(1, 0, 0), (2, 1, 1), (255, 1, 8), (256, 1, 8), (257, 2, 5), (16_000, 2, 7),
+     (40_000, 2, 8), (65_536, 2, 8), (70_000, 3, 6), (2**31 - 1, 4, 8)],
+)
+def test_radix_plan_passes_and_digit_widths(nb, passes, bits):
+    assert radix_plan(nb) == (passes, bits)
+
+
+@pytest.mark.parametrize("nb", [2, 3, 255, 256, 257, 4097, 16_000, 40_000, 65_537, 70_000])
+def test_radix_plan_lsd_passes_give_the_stable_order(nb):
+    """The plan's digits, sorted one stable pass at a time from the lowest
+    (as the kernel's passes do), give np.argsort(kind="stable")."""
+    passes, bits = radix_plan(nb)
+    assert bits <= 8 and passes * bits >= (nb - 1).bit_length()
+    rng = np.random.default_rng(nb)
+    codes = rng.integers(0, nb, size=5000)
+    order = np.arange(codes.size)
+    for p in range(passes):
+        digit = (codes[order] >> (p * bits)) & ((1 << bits) - 1)
+        order = order[np.argsort(digit, kind="stable")]
+    np.testing.assert_array_equal(order, np.argsort(codes, kind="stable"))
+
+
+def test_radix_scratch_holds_ping_pong_buffers_only_between_passes():
+    n = 1 << 20
+    head = [radix_scratch_bytes(n, 2, p) for p in (1, 2, 3, 4)]
+    tiles = -(-n // RADIX_TILE)
+    assert head[0] >= tiles * 256 * 8  # one pass: status words, no buffer
+    assert head[1] - head[0] >= n * (2 + 4)  # one int16 key and int32 index buffer
+    assert head[2] - head[1] >= n * (2 + 4)  # a second buffer from three passes on
+    assert head[3] - head[2] == tiles * 256 * 8  # a fourth pass adds status words only
 
 
 def test_cpu_tensors_never_count_launches():

@@ -45,7 +45,9 @@ from repro_torch.configs import all_configs
 from repro_torch.kernels.flash_attention import kernel_path
 from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.moe_gemm.ops import kernel_path as moe_kernel_path
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+from repro_torch.models.moe import capacity
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.models import layers
 
@@ -326,6 +328,31 @@ def test_moe_gemm_wrapper_on_cpu_is_plain():
     reset_launch_counts()
     assert torch.equal(moe_gemm(tx, tw), moe_gemm_ref(tx, tw))
     assert launch_counts()["moe_gemm"] == 0
+
+
+@pytest.mark.parametrize(
+    "c,d,f,dtype,aligned,path",
+    [(960, 2048, 1408, torch.bfloat16, True, "wgmma"), (65, 72, 8, torch.bfloat16, True, "wgmma"),
+     (64, 2048, 1408, torch.bfloat16, True, "mma"), (8, 2048, 1408, torch.bfloat16, True, "mma"),
+     (960, 2048, 1408, torch.bfloat16, False, "simt"),
+     (960, 76, 1408, torch.bfloat16, True, "simt"),
+     (960, 2048, 44, torch.bfloat16, True, "simt"), (960, 2048, 1408, torch.float32, True, "simt")],
+)
+def test_moe_gemm_kernel_path(c, d, f, dtype, aligned, path):
+    assert moe_kernel_path(64, c, d, f, dtype, aligned) == path
+
+
+def test_moe_gemm_kernel_path_of_moonlights_products():
+    """Moonlight-16B-A3B's prefill (4 prompts of 2,048 tokens: 960 rows per
+    expert) takes the wgmma body for both products; its decode (4 rows) and
+    serve (8 rows) steps take mma.sync."""
+    cfg = all_configs()["moonshot_v1_16b_a3b"]
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    for rows, path in ((4 * capacity(cfg, 2048), "wgmma"), (4 * capacity(cfg, 1), "mma"),
+                       (8 * capacity(cfg, 1), "mma")):
+        for dd, ff in ((d, f), (f, d)):
+            assert moe_kernel_path(e, rows, dd, ff, torch.bfloat16, True) == path
+    assert 4 * capacity(cfg, 2048) == 960
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take():
