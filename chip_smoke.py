@@ -16,11 +16,19 @@ error or mismatch:
    (tests/test_kernels.py's bf16 tolerance) and, per output row, within 1e-2
    of the plain version's norm, rglru_scan at atol = rtol = 1e-5 (the
    reference's); a planted fault per kernel (two equal codes swapped in the
-   sort's order, a dropped KV tile or split, the scan's carry reset halfway,
-   a skipped K slice) must fail that check -- and
-   time kernel, plain version and the library yardstick with CUDA events,
-   flash at the GLM, Moonlight and RecurrentGemma (head_dim 256) prefills'
-   shapes, with a planted fault at head_dim 128 and at 256;
+   sort's order, a dropped KV tile, the decode merge without its last split,
+   the scan's carry reset halfway, a skipped K slice, a live expert treated
+   as dead) must fail that check -- and time kernel, plain version and the
+   library yardstick: flash at the GLM, Moonlight and RecurrentGemma (head_dim
+   256) prefills' shapes, with a planted fault at head_dim 128 and at 256;
+   decode attention at the three models' decode shapes beside SDPA given the
+   same length mask, and moe_gemm's decode and serve products (dense x, and
+   x from a real top-6 dispatch, whose dead experts the kernel skips, held
+   exactly equal to the same body without the skip) beside ``torch.bmm``.
+   These decode-shape times are each given twice, in three rounds: device
+   ms per call (``device_ms``, torch.profiler) and host ms per call
+   (``cuda_ms``, CUDA events around back-to-back calls), since a call of a
+   few microseconds on the card can take longer than that on the host;
 3. the engine path at full size: Real Job 3 (airline → extract → sumdelay →
    routedelay) with 1000 key groups per operator on 16 nodes, one 2^20-tuple
    airline batch per tick for 20 ticks, every routed hop through both
@@ -71,6 +79,11 @@ that run them (phases 3-4 for routing, 5-8 for the LM kernels), times,
 bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
 and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
 without CUDA, and outside a checkout that holds ``src/repro_torch``.
+
+``python3 chip_smoke.py --host-us [SRC]`` runs none of that: it prints the
+host microseconds per call of the decode path's kernel wrappers
+(``host_us``), imported from SRC (default ``src``), so that two checkouts
+can be compared in one call.
 """
 
 from __future__ import annotations
@@ -156,7 +169,10 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call of ``fn`` over ``reps`` calls."""
+    """Host milliseconds per call of ``fn``: CUDA events around ``reps``
+    back-to-back calls.  When a call's host work outlasts its kernels (a
+    launch of a few microseconds), this is the host's pace, not the
+    device's: ``device_ms`` gives that."""
     import torch
 
     fn(0)  # warm-up (builds, allocator)
@@ -169,6 +185,78 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_kernels(prof) -> list[tuple[float, str, int]]:
+    """(device µs, name, count) of every device-side event (kernels,
+    copies, memsets) a torch.profiler run recorded, largest first.  A CPU
+    op's device time repeats that of the kernels it launched, so CPU-side
+    events are left out."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    return sorted(rows, reverse=True)
+
+
+def device_ms(fn, reps: int, attempts: int = 3) -> float:
+    """Device milliseconds per call of ``fn`` from torch.profiler over
+    ``reps`` calls: for each kernel (or copy) the calls ran, its mean
+    duration times its launches per call.  The host's time between launches
+    is left out.  A trace can lose an event or two (one of 60 launches at
+    times), so launches per call are counts over ``reps`` rounded; a trace
+    whose counts are far from whole multiples of ``reps`` is taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    rows = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        rows = device_kernels(prof)
+        per_call = [max(1, round(n / reps)) for _, _, n in rows]
+        if rows and all(abs(n - k * reps) <= max(1, reps // 20)
+                        for (_, _, n), k in zip(rows, per_call)):
+            return sum(us / n * k for (us, _, n), k in zip(rows, per_call)) / 1e3
+    raise SmokeFailure(f"torch.profiler recorded no whole trace of {reps} calls in {attempts} "
+                       f"attempts: {[(k, n) for _, k, n in rows]}")
+
+
+ROUNDS = 3  # phase 2's decode-shape timings: rounds within the call, for the spread
+
+
+def timed_rounds(fns: dict, rounds: int = ROUNDS) -> dict[str, dict]:
+    """Device ms per call (``device_ms``) and host ms per call
+    (``cuda_ms``) of each ``name -> (fn, reps)``, in ``rounds`` rounds that
+    take the callables in turn; per name the median and the [min, max] of
+    each."""
+    runs = {name: ([], []) for name in fns}
+    for _ in range(rounds):
+        for name, (fn, reps) in fns.items():
+            runs[name][0].append(device_ms(fn, reps))
+            runs[name][1].append(cuda_ms(fn, reps))
+    return {name: dict(device_ms=float(np.median(dev)), device_spread=[min(dev), max(dev)],
+                       host_ms=float(np.median(host)), host_spread=[min(host), max(host)])
+            for name, (dev, host) in runs.items()}
+
+
+def fmt_rounds(t: dict) -> str:
+    """'device d [lo-hi], host h [lo-hi] ms' for the log."""
+    lo, hi = t["device_spread"]
+    hlo, hhi = t["host_spread"]
+    return (f"device {t['device_ms']:.4f} [{lo:.4f}-{hi:.4f}], host {t['host_ms']:.4f} "
+            f"[{hlo:.4f}-{hhi:.4f}] ms")
 
 
 def bound_ms(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
@@ -350,19 +438,16 @@ def sdpa(q, k, v, **kw):
 ROTATE = 6  # decode timing: cache copies rotated past the L2 cache
 
 
-def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, cap=LM_CONTEXT,
-                            heads=32, kv=2, hd=128, window_batch=1, window=512,
-                            reps: int = 10) -> dict[str, dict]:
+def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, heads=32, kv=2, hd=128,
+                            window_batch=1, window=512, reps: int = 10) -> dict[str, dict]:
     """Both attention kernels against their plain versions on the card, in
     bf16, at GLM-4-9B's main-path shapes (prefill: B=8, S=T=2048, H=32,
-    KV=2, hd=128, causal; decode: B=8, T=4096), plus a window=512 flash
-    case and decode rows with kv_len in [1, T] including 1, T and lengths
-    that are not tile multiples.  Times: kernel, plain version and
+    KV=2, hd=128, causal; decode: B=8, T=4096, ``decode_timed_case``), plus
+    a window=512 flash case.  Times: kernel, plain version and
     ``scaled_dot_product_attention`` on pre-transposed tensors."""
     import torch
 
-    from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -418,67 +503,116 @@ def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, cap=LM_CONTEX
         **main,
     )
 
-    # -- decode: per-row kv_len over [1, T] (1, T, non-tile multiples), then
-    # timing at the prefill's decode lengths (all rows at seq + 16).
-    q = randn(batch, 1, heads, hd)
-    kc, vc = randn(batch, cap, kv, hd), randn(batch, cap, kv, hd)
-    lens = torch.tensor([1, cap, 63, 65, 1000, 2049, 3333, cap - 1][:batch],
-                        dtype=torch.int32, device=dev)
-    got = decode_attention(q, kc, vc, lens)
-    torch.cuda.synchronize()
-    err, rel = row_check("decode_attention against its plain version", got,
-                          decode_attention_ref(q, kc, vc, lens))
-    live_len = seq + LM_DECODE_STEPS
-    steady = torch.full((batch,), live_len, dtype=torch.int32, device=dev)
-    steady_ref = decode_attention_ref(q, kc, vc, steady)
-    err2, rel2 = row_check(f"decode_attention (kv_len {live_len})",
-                            decode_attention(q, kc, vc, steady), steady_ref)
-    # Planted fault: the last 16 keys missing, as if the last split were
-    # dropped from the merge.
-    fault, fault_bad = planted_fault("decode without its last 16 keys",
-                                     decode_attention(q, kc, vc, steady - 16), steady_ref)
-    # The two kernels against each other on the same inputs: flash over the
-    # first kv_len keys without a causal mask computes what decode does.
-    pair = flash_attention(q, kc[:, :live_len].contiguous(), vc[:, :live_len].contiguous(),
-                           causal=False)
-    err3, rel3 = row_check("flash_attention (causal=False) against decode_attention on the "
-                            "same inputs", pair, decode_attention(q, kc, vc, steady))
-    # Timing rotates over copies of the caches (their live rows, 2 x 8.5 MB
-    # each, more than the 50 MB L2 cache in all), so each timed launch reads
-    # its keys and values from device memory, as a decode step does.
-    copies = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(ROTATE - 1)]
-    tcopies = [tuple(x.transpose(1, 2).contiguous() for x in (q, a, b)) for a, b in copies]
-    mask = (torch.arange(cap, device=dev)[None, :] < steady[:, None])[:, None, None, :]
-    ms = cuda_ms(lambda i: decode_attention(q, *copies[i % ROTATE], steady), reps * 10)
-    plain = cuda_ms(lambda i: decode_attention_ref(q, *copies[i % ROTATE], steady), reps)
-    lib = cuda_ms(lambda i: sdpa(*tcopies[i % ROTATE], attn_mask=mask), reps * 10)
-    live = int(steady.sum())
-    nbytes = 2 * (2 * live * kv * hd + 2 * q.numel())
-    flops = 4 * heads * hd * live
-    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-    log(f"[kernel] decode_attention B={batch} T={cap} H={heads} KV={kv} hd={hd} "
-        f"kv_len={live_len}: {ms:.4f} ms (plain {plain:.4f} ms, sdpa "
-        f"{lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}; caches rotated over {ROTATE} copies), "
-        f"max_abs_err={max(err, err2)} max_row_rel_err={max(rel, rel2):.3e} (kv_len "
-        f"{lens.tolist()}); planted fault (last 16 keys dropped): row error {fault:.3e}, "
-        f"{fault_bad} elements outside ATTN_TOL; "
-        f"flash vs decode on the same inputs: max err {err3}, row error {rel3:.3e}")
+    # -- decode at GLM's shape, held against flash on the same inputs too.
+    case = decode_timed_case(dev, *DECODE_SHAPES[0], gen, pair_with_flash=True)
     out["decode_attention"] = dict(
         route="cuda",
         source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/decode_attention.py:84",
-        max_abs_err=max(err, err2),
-        max_row_rel_err=max(rel, rel2),
-        planted_fault_row_rel_err=fault,
-        ms=ms,
-        plain_ms=plain,
-        library_ms=lib,
-        bound_ms=b_ms,
-        bound_by=b_by,
-        shape=f"q ({batch},1,{heads},{hd}) caches ({batch},{cap},{kv},{hd}) bf16 "
-              f"kv_len {seq + LM_DECODE_STEPS}",
+        cases=[case],
+        **{k: case[k] for k in ("max_abs_err", "max_row_rel_err", "planted_fault_row_rel_err",
+                                "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "shape")},
     )
     return out
+
+
+#: Decode shapes of the three models, timed in phase 2: (what, B, T, KV, G,
+#: hd, kv_len of the timed rows).  GLM-4-9B after its prefill; Moonlight
+#: (G = 1) likewise; RecurrentGemma's LOCAL_ATTN ring, full (its 2,048-slot
+#: window wrapped: transformer.py's ring decode).
+DECODE_SHAPES = (
+    ("GLM-4-9B", LM_BATCH, LM_CONTEXT, 2, 16, 128, LM_PROMPT + LM_DECODE_STEPS),
+    ("Moonlight", MOE_BATCH, MOE_CONTEXT, 16, 1, 128, MOE_PROMPT + MOE_DECODE_STEPS),
+    ("RecurrentGemma ring", RG_BATCH, 2048, 1, 10, 256, 2048),
+)
+
+
+def decode_timed_case(dev, what: str, b: int, t: int, kv: int, g: int, hd: int, live_len: int,
+                      gen, *, pair_with_flash: bool = False, reps: int = 50) -> dict:
+    """The decode kernel at one model's shape, in bf16: rows with kv_len in
+    [1, T] (1, T, lengths that are no tile multiple, the first split's end
+    and one past it) and rows all at ``live_len`` against the plain
+    version; two planted faults the row check must reject (the last 16 keys
+    missing; the merge leaving out the last split to arrive, through the
+    launcher's debug flag); then device and host ms per call of the kernel,
+    SDPA given the same length mask, and the plain version, in ROUNDS
+    rounds, with the caches rotated over ROTATE copies (more than the 50 MB
+    L2 cache holds) as a decode step finds them."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    bf16, h = torch.bfloat16, kv * g
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    q = randn(b, 1, h, hd)
+    kc, vc = randn(b, t, kv, hd), randn(b, t, kv, hd)
+    path = dec_ops.kernel_path(bf16, g, hd)
+    nsplit = dec_ops.plan(b, kv, t, torch.cuda.get_device_properties(dev).multi_processor_count,
+                          path, hd, g)
+    # One tile a split (every split ends on its tile's last key), and one key more.
+    split_end = dec_ops.TILE_KEYS[path] * nsplit
+    lens = torch.tensor([1, t, 63, split_end, split_end + 1, 1000, t - 1, 65][:b],
+                        dtype=torch.int32, device=dev)
+    got = decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    err, rel = row_check(f"decode_attention ({what}) against its plain version", got,
+                          decode_attention_ref(q, kc, vc, lens))
+    steady = torch.full((b,), live_len, dtype=torch.int32, device=dev)
+    steady_ref = decode_attention_ref(q, kc, vc, steady)
+    got = decode_attention(q, kc, vc, steady)
+    err2, rel2 = row_check(f"decode_attention ({what}, kv_len {live_len})", got, steady_ref)
+    # Planted faults: the last 16 keys missing; a split's partial that never
+    # reaches the merge.
+    fault, fault_bad = planted_fault(f"decode ({what}) without its last 16 keys",
+                                     decode_attention(q, kc, vc, steady - 16), steady_ref)
+    dropped = torch.empty_like(q)
+    dec_ops.launch(q, kc, vc, steady, dropped, path=path, nsplit=nsplit, drop_last_split=True)
+    fault2, fault2_bad = planted_fault(f"decode ({what}) without the last split to arrive",
+                                       dropped, steady_ref)
+    check(nsplit > 1, f"decode ({what}) ran one split: the dropped-split fault plants nothing")
+    note = ""
+    if pair_with_flash:
+        # The two kernels against each other on the same inputs: flash over
+        # the first kv_len keys without a causal mask computes what decode does.
+        pair = flash_attention(q, kc[:, :live_len].contiguous(), vc[:, :live_len].contiguous(),
+                               causal=False)
+        err3, rel3 = row_check(f"flash_attention (causal=False) against decode_attention "
+                                f"({what}) on the same inputs", pair, got)
+        note = f"; flash vs decode on the same inputs: max err {err3}, row error {rel3:.3e}"
+    del got, dropped
+    copies = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(ROTATE - 1)]
+    tcopies = [tuple(x.transpose(1, 2).contiguous() for x in (q, a, c)) for a, c in copies]
+    mask = (torch.arange(t, device=dev)[None, :] < steady[:, None])[:, None, None, :]
+    times = timed_rounds({
+        "kernel": (lambda i: decode_attention(q, *copies[i % ROTATE], steady), reps),
+        "sdpa": (lambda i: sdpa(*tcopies[i % ROTATE], attn_mask=mask), reps),
+        "plain": (lambda i: decode_attention_ref(q, *copies[i % ROTATE], steady), 5),
+    })
+    live = int(steady.sum())
+    nbytes = 2 * (2 * live * kv * hd + 2 * q.numel())
+    b_ms, b_by = bound_ms(nbytes, 4 * h * hd * live, BF16_FLOPS_PER_S)
+    kern_t = times["kernel"]
+    log(f"[kernel] decode_attention {what}: B={b} T={t} H={h} KV={kv} G={g} hd={hd} "
+        f"kv_len={live_len}, {path} body, {nsplit} splits: kernel {fmt_rounds(kern_t)}; sdpa "
+        f"{fmt_rounds(times['sdpa'])}; plain {fmt_rounds(times['plain'])}; bound {b_ms:.4f} ms "
+        f"by {b_by} ({b_ms / kern_t['device_ms']:.1%} of it on the device); caches rotated over "
+        f"{ROTATE} copies, {ROUNDS} rounds; max_abs_err={max(err, err2)} "
+        f"max_row_rel_err={max(rel, rel2):.3e} (kv_len {lens.tolist()}); planted faults: last "
+        f"16 keys dropped, row error {fault:.3e} ({fault_bad} elements outside ATTN_TOL); last "
+        f"split dropped from the merge, row error {fault2:.3e} ({fault2_bad} outside){note}")
+    del copies, tcopies, q, kc, vc
+    return dict(
+        shape=f"{what}: q ({b},1,{h},{hd}) caches ({b},{t},{kv},{hd}) bf16 kv_len {live_len}",
+        body=path, splits=nsplit, max_abs_err=max(err, err2), max_row_rel_err=max(rel, rel2),
+        planted_fault_row_rel_err=min(fault, fault2), ms=kern_t["device_ms"],
+        host_ms=kern_t["host_ms"], plain_ms=times["plain"]["device_ms"],
+        library_ms=times["sdpa"]["device_ms"], bound_ms=b_ms, bound_by=b_by, times=times)
 
 
 def flash_rate(b, s, h, hd, ms, b_ms) -> str:
@@ -552,8 +686,10 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
       down product (E, rows, 1408) x (E, 1408, 2048); x ~ N(0,1), w ~ 0.05
       N(0,1), at ATTN_TOL and ROW_RTOL per output row.  Planted fault: the
       last 32-deep slice of the contraction skipped.  Library yardstick:
-      ``torch.bmm``.  Then both tensor-core bodies at the row threshold of
-      ``kernel_path`` (``moe_row_threshold``).
+      ``torch.bmm``; the decode and serve shapes timed on the device and on
+      the host in rounds (``timed_rounds``).  Then the mma body on the x of
+      a real dispatch (``moe_dispatch_cases``) and both tensor-core bodies
+      at the row threshold of ``kernel_path`` (``moe_row_threshold``).
     """
     import torch
 
@@ -626,22 +762,35 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
             "moe_gemm without its last 32-deep slice of the contraction",
             moe_gemm(x[..., : d - 32].contiguous(), wt[:, : d - 32].contiguous()), ref)
         body = moe_kernel_path(e, rows, d, f, torch.bfloat16, True)
-        ms = cuda_ms(lambda i: moe_gemm(x, wt), reps)
-        plain = cuda_ms(lambda i: moe_gemm_ref(x, wt), max(2, reps // 5))
-        lib = cuda_ms(lambda i: torch.bmm(x, wt), reps)
         flops = 2 * e * rows * d * f
         b_ms, b_by = bound_ms(2 * (x.numel() + wt.numel() + e * rows * f), flops,
                               BF16_FLOPS_PER_S)
+        case = dict(shape=f"x ({e},{rows},{d}) w ({e},{d},{f}) bf16 ({label})", body=body,
+                    max_abs_err=err, max_row_rel_err=rel, planted_fault_row_rel_err=fault,
+                    bound_ms=b_ms, bound_by=b_by)
+        if body == "mma":
+            # Decode and serve: device and host time apart, in rounds.
+            times = timed_rounds({"kernel": (lambda i: moe_gemm(x, wt), 4 * reps),
+                                  "bmm": (lambda i: torch.bmm(x, wt), 4 * reps),
+                                  "plain": (lambda i: moe_gemm_ref(x, wt), 3)})
+            case.update(ms=times["kernel"]["device_ms"], host_ms=times["kernel"]["host_ms"],
+                        plain_ms=times["plain"]["device_ms"],
+                        library_ms=times["bmm"]["device_ms"], times=times)
+            timing = (f"kernel {fmt_rounds(times['kernel'])}; torch.bmm "
+                      f"{fmt_rounds(times['bmm'])}; plain {fmt_rounds(times['plain'])}")
+        else:
+            case.update(ms=cuda_ms(lambda i: moe_gemm(x, wt), reps),
+                        plain_ms=cuda_ms(lambda i: moe_gemm_ref(x, wt), max(2, reps // 5)),
+                        library_ms=cuda_ms(lambda i: torch.bmm(x, wt), reps))
+            timing = (f"{case['ms']:.4f} ms (plain {case['plain_ms']:.4f} ms, torch.bmm "
+                      f"{case['library_ms']:.4f} ms)")
         log(f"[kernel] moe_gemm {label} ({e},{rows},{d})x({e},{d},{f}) bf16, {body} body: "
-            f"{ms:.4f} ms (plain "
-            f"{plain:.4f} ms, torch.bmm {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
-            f"{flops / ms / 1e9:.1f} TFLOP/s), max_abs_err={err} max_row_rel_err={rel:.3e}; "
-            f"planted fault (last 32-deep K slice skipped): row error {fault:.3e}, {fault_bad} "
-            f"elements outside ATTN_TOL")
-        cases.append(dict(shape=f"x ({e},{rows},{d}) w ({e},{d},{f}) bf16 ({label})", body=body,
-                          max_abs_err=err, max_row_rel_err=rel, planted_fault_row_rel_err=fault,
-                          ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+            f"{timing}, bound {b_ms:.4f} ms by {b_by}; {flops / case['ms'] / 1e9:.1f} TFLOP/s; "
+            f"max_abs_err={err} max_row_rel_err={rel:.3e}; planted fault (last 32-deep K slice "
+            f"skipped): row error {fault:.3e}, {fault_bad} elements outside ATTN_TOL")
+        cases.append(case)
         del x, wt, got, ref
+    dispatch = moe_dispatch_cases(dev, gen, moe_cfg, reps)
     threshold = moe_row_threshold(dev, gen, e, moe_cfg.d_model, moe_cfg.d_ff, reps)
     main = {k: v for k, v in cases[0].items() if k not in ("shape", "body")}
     main.update(max_abs_err=max(c["max_abs_err"] for c in cases),
@@ -651,9 +800,102 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
         source="src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu",
         replaces="src/repro/kernels/moe_gemm/moe_gemm.py:49",
         cases=cases,
+        dispatch_cases=dispatch,
         row_threshold=threshold,
         **main,
     )
+    return out
+
+
+def moe_dispatch_cases(dev, gen, cfg, reps: int) -> list[dict]:
+    """The mma body on the x a real top-k dispatch gives it (``_row_dispatch``
+    from seeded router logits): a decode step's 4 rows and a serve tick's 8,
+    for the gate/up product and for the down product on the activation of
+    the gate/up outputs.  Experts that no row chose have all-zero rows,
+    which the body skips.  Each output is held exactly equal (torch.equal)
+    to the same body with the skip turned off (the live experts' sums are
+    the same sums in the same order), to the plain version by the row
+    check, and to zero on every dead expert's rows; a planted fault (a live
+    expert treated as dead) must fail the row check.  Times: the kernel,
+    the same body without the skip, ``torch.bmm`` and the plain version;
+    bounds: the dense product's bytes, and the live experts' weights plus x
+    and out (the bytes the skip leaves to read)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_gemm
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.models.moe import _row_dispatch
+
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    bf16 = torch.bfloat16
+    w_gate, w_up = ((0.05 * torch.randn(e, d, f, generator=gen, device=dev)).to(bf16)
+                    for _ in range(2))
+    w_down = (0.05 * torch.randn(e, f, d, generator=gen, device=dev)).to(bf16)
+    router = (torch.randn(d, e, generator=gen, device=dev) / d**0.5).to(bf16)
+    out = []
+    for label, b in (("decode", MOE_BATCH), ("serve", SERVE["slots"])):
+        tokens = torch.randn(b, 1, d, generator=gen, device=dev).to(bf16)
+        tok_slot, _, used, _, chosen = _row_dispatch(cfg, tokens, router, 1)
+        rows = torch.arange(b, device=dev)[:, None]
+        xin = tokens[rows, tok_slot] * used[..., None].to(bf16)
+        xin = xin.reshape(b, e, 1, d).transpose(0, 1).reshape(e, b, d).contiguous()
+        h = F.silu(moe_gemm(xin, w_gate)) * moe_gemm(xin, w_up)
+        for product, x, w in (("gate/up", xin, w_up), ("down", h, w_down)):
+            what = f"moe_gemm {label} dispatch, {product}"
+            live = (x.view(torch.int16) & 0x7FFF).ne(0).flatten(1).any(1)
+            n_live = int(live.sum())
+            check(n_live == int(torch.unique(chosen).numel()),
+                  f"{what}: {n_live} experts with rows, {torch.unique(chosen).numel()} chosen")
+            check(moe_ops.kernel_path(e, b, x.shape[2], w.shape[2], bf16, True) == "mma",
+                  f"{what}: not the mma body")
+            got = moe_gemm(x, w)
+            dense = torch.empty_like(got)
+            moe_ops.launch(x, w, dense, "mma", skip_dead=False)
+            torch.cuda.synchronize()
+            check(torch.equal(got, dense), f"{what}: the skip changed a live expert's output")
+            check(not bool(got[~live].any()), f"{what}: a dead expert's rows are not zero")
+            ref = moe_gemm_ref(x, w)
+            scale = float(ref.float().abs().max())
+            tol = dict(atol=ATTN_TOL["atol"] * scale, rtol=ATTN_TOL["rtol"])
+            err, rel = row_check(f"{what} against its plain version", got, ref, tol)
+            faulty = torch.empty_like(got)
+            moe_ops.launch(x, w, faulty, "mma", dead_expert=int(live.nonzero()[0]))
+            fault, _ = planted_fault(f"{what} with a live expert treated as dead", faulty, ref)
+            del dense, faulty
+            times = timed_rounds({
+                "kernel": (lambda i, x=x, w=w: moe_gemm(x, w), 4 * reps),
+                "no_skip": (lambda i, x=x, w=w, o=got: moe_ops.launch(x, w, o, "mma",
+                                                                        skip_dead=False),
+                            4 * reps),
+                "bmm": (lambda i, x=x, w=w: torch.bmm(x, w), 4 * reps),
+                "plain": (lambda i, x=x, w=w: moe_gemm_ref(x, w), 3)})
+            io = 2 * (x.numel() + e * b * w.shape[2])
+            b_ms, b_by = bound_ms(io + 2 * w.numel(), 2 * x.numel() * w.shape[2],
+                                  BF16_FLOPS_PER_S)
+            live_ms, _ = bound_ms(io + 2 * n_live * w[0].numel(),
+                                  2 * n_live * b * x.shape[2] * w.shape[2], BF16_FLOPS_PER_S)
+            kern_t = times["kernel"]
+            log(f"[kernel] {what}: x ({e},{b},{x.shape[2]}) w ({e},{x.shape[2]},{w.shape[2]}) "
+                f"bf16, {n_live} of {e} experts live: kernel {fmt_rounds(kern_t)}; same body "
+                f"without the skip {fmt_rounds(times['no_skip'])}; torch.bmm "
+                f"{fmt_rounds(times['bmm'])}; plain {fmt_rounds(times['plain'])}; bound "
+                f"{b_ms:.4f} ms dense, {live_ms:.4f} ms live by bytes "
+                f"({live_ms / kern_t['device_ms']:.1%} of it on the device); equal to the dense "
+                f"body (torch.equal), dead rows 0, max_abs_err={err} (max |out| {scale}) "
+                f"max_row_rel_err={rel:.3e}; planted fault (a live expert treated as dead): row "
+                f"error {fault:.3e}")
+            out.append(dict(shape=f"x ({e},{b},{x.shape[2]}) w ({e},{x.shape[2]},{w.shape[2]}) "
+                                  f"bf16 ({label} dispatch, {product})",
+                            live_experts=n_live, max_abs_err=err, max_row_rel_err=rel,
+                            planted_fault_row_rel_err=fault, ms=kern_t["device_ms"],
+                            host_ms=kern_t["host_ms"], plain_ms=times["plain"]["device_ms"],
+                            library_ms=times["bmm"]["device_ms"], bound_ms=b_ms, bound_by=b_by,
+                            live_bound_ms=live_ms, times=times))
+            del got, ref
+        del tokens, xin, h
+    del w_gate, w_up, w_down
     return out
 
 
@@ -664,12 +906,9 @@ def moe_row_threshold(dev, gen, e: int, d_model: int, d_ff: int, reps: int) -> l
     against the plain version.  These launches bypass the wrapper's count."""
     import torch
 
-    from repro_torch.kernels import _build
     from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
-    lib = moe_ops._lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rows_out = []
     for rows in (moe_ops.WGMMA_MIN_ROWS - 1, moe_ops.WGMMA_MIN_ROWS):
         for d, f in ((d_model, d_ff), (d_ff, d_model)):
@@ -681,11 +920,8 @@ def moe_row_threshold(dev, gen, e: int, d_model: int, d_ff: int, reps: int) -> l
             for body in ("mma", "wgmma"):
                 got = torch.empty(e, rows, f, dtype=torch.bfloat16, device=dev)
 
-                def launch(i, body=body, got=got, x=x, wt=wt, d=d, f=f):
-                    _build.check(lib.moe_gemm_launch(
-                        x.data_ptr(), wt.data_ptr(), got.data_ptr(), e, rows, d, f,
-                        moe_ops.DTYPE_CODES[torch.bfloat16], moe_ops.PATH_CODES[body], stream),
-                        f"moe_gemm ({body} body)")
+                def launch(i, body=body, got=got, x=x, wt=wt):
+                    moe_ops.launch(x, wt, got, body)
 
                 launch(0)
                 torch.cuda.synchronize()
@@ -1306,11 +1542,17 @@ def watch_last_token_drops(cfg, dropped: list):
         transformer.moe_forward = routed
 
 
+#: Port kernels by the names their CUDA functions carry in a profile.
+KERNEL_SYMBOLS = {"decode_attention": ("decode_mma_kernel", "decode_simt_kernel"),
+                  "moe_gemm": ("moe_gemm_",), "flash_attention": ("flash_",),
+                  "rglru_scan": ("rglru_scan",)}
+
+
 def profile_decode(cfg, params, run: dict, steps: int = 3) -> dict:
     """Device busy share of a few full-depth decode steps (torch.profiler):
-    summed kernel time over wall time, and the kernels that take it."""
+    summed kernel time over wall time, the busy ms per step, each port
+    kernel's device ms per step, and the kernels that take the most."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import Model
@@ -1326,25 +1568,19 @@ def profile_decode(cfg, params, run: dict, steps: int = 3) -> dict:
             model.decode_step(params, run["cache"], tok, pos)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        # Device-side events only (kernels, copies): a CPU op's device time
-        # repeats that of the kernels it launched.
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
+    rows = device_kernels(prof)
     busy = sum(r[0] for r in rows) / 1e6
+    per_kernel = {name: sum(us for us, k, _ in rows if any(sym in k for sym in syms))
+                  / 1e3 / steps for name, syms in KERNEL_SYMBOLS.items()}
     res = dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall if rows else None,
-               top=[(k, round(us / 1e3, 3), n) for us, k, n in rows[:8]])
+               busy_ms_per_step=busy * 1e3 / steps, wall_ms_per_step=wall * 1e3 / steps,
+               kernel_ms_per_step={k: v for k, v in per_kernel.items() if v > 0},
+               top=[(k, round(us / 1e3, 3), n) for us, k, n in rows[:10]])
     if rows:
-        log(f"[profile] {steps} decode steps: wall {wall * 1e3:.3f} ms, device busy "
-            f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f} %); top kernels (ms, launches): "
-            f"{res['top']}")
+        log(f"[profile] {cfg.name}, {steps} decode steps: wall {wall * 1e3:.3f} ms, device busy "
+            f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f} %), {res['busy_ms_per_step']:.3f} ms "
+            f"busy per step; port kernels' device ms per step {res['kernel_ms_per_step']}; top "
+            f"kernels (ms, launches): {res['top']}")
     else:
         log("[profile] torch.profiler recorded no device time: busy share not measured")
     return res
@@ -1504,6 +1740,49 @@ def run_lm(dev, drive, spec: dict) -> tuple[dict, dict]:
     return lm, served
 
 
+def host_us(reps: int = 200, rounds: int = 5) -> dict:
+    """Host microseconds per call of the decode path's kernel wrappers, as
+    imported (``--host-us SRC`` imports them from SRC, so that two
+    checkouts can be compared in one call): the wall time of ``reps``
+    back-to-back calls with no synchronization between them, over ``reps``,
+    the median of ``rounds``.  decode_attention at the three decode shapes
+    with kv_len int32 on the card and int64 (what the model passes);
+    moe_gemm at Moonlight's decode products."""
+    import torch
+
+    from repro_torch.kernels import decode_attention, moe_gemm
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            runs.append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+        return float(np.median(runs))
+
+    out = {}
+    for what, b, t, kv, g, hd, live in DECODE_SHAPES:
+        q = torch.randn(b, 1, kv * g, hd, generator=gen, device=dev).to(bf16)
+        kc = torch.randn(b, t, kv, hd, generator=gen, device=dev).to(bf16)
+        for dtype in (torch.int32, torch.int64):
+            lens = torch.full((b,), live, dtype=dtype, device=dev)
+            out[f"decode_attention {what}, kv_len {str(dtype)[6:]}"] = per_call(
+                lambda: decode_attention(q, kc, kc, lens))
+    for rows, d, f in ((MOE_BATCH, 2048, 1408), (MOE_BATCH, 1408, 2048)):
+        x = torch.randn(64, rows, d, generator=gen, device=dev).to(bf16)
+        w = torch.randn(64, d, f, generator=gen, device=dev).to(bf16)
+        out[f"moe_gemm ({64},{rows},{d})x({64},{d},{f})"] = per_call(lambda: moe_gemm(x, w))
+    return out
+
+
 def gpu_name_and_limit() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1517,8 +1796,12 @@ def gpu_name_and_limit() -> str:
 
 def main() -> int:
     t_start = time.perf_counter()
-    if not (SRC / "repro_torch" / "__init__.py").is_file():
-        print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
+    # ``--host-us [SRC]``: only the wrappers' host time per call, from the
+    # port under SRC (default: this checkout's), as one JSON line.
+    host_only = sys.argv[1:2] == ["--host-us"]
+    src = Path(sys.argv[2]).resolve() if host_only and len(sys.argv) > 2 else SRC
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {src}/repro_torch not found", file=sys.stderr)
         return 2
     try:
         import torch
@@ -1528,7 +1811,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
+    if host_only:
+        card = gpu_name_and_limit()
+        print(json.dumps({"src": str(src), "card": card, "host_us_per_call": host_us()}))
+        return 0
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 
     dev = torch.device("cuda", 0)
@@ -1558,6 +1845,9 @@ def main() -> int:
 
         kernels = routing_kernel_checks(dev)
         kernels.update(attention_kernel_checks(dev))
+        dec_gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        kernels["decode_attention"]["cases"] += [decode_timed_case(dev, *shape, dec_gen)
+                                                 for shape in DECODE_SHAPES[1:]]
         flash_cases = kernels["flash_attention"]["cases"]
         flash_cases.append(flash_timed_case(
             dev, "Moonlight prefill", MOE_BATCH, MOE_PROMPT, 16, 16, 128, None, SEED + 2))

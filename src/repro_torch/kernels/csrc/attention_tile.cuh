@@ -9,8 +9,8 @@
 // state (m, l, acc) in f32 -- the Pallas kernels' (m_scr, l_scr, acc_scr).
 // Masked scores are -inf.  At the end the block either writes the output
 // acc / max(l, 1e-37) (the Pallas kernels' clamp; a row whose keys are all
-// masked writes 0), or, for a split over keys, its partial (acc, m, l) for a
-// later merge (merge_partials).
+// masked writes 0), or, for a split over keys, its partial (acc, m, l) for
+// the merge that decode_attention.cu's last block of the split does.
 //
 // Shared memory (f32): q [rows][hd], k [kTileKeys][hd + 1] (padded so the
 // score loop's lanes, on consecutive keys, hit distinct banks), v

@@ -4,13 +4,21 @@
 //   src/repro/kernels/moe_gemm/moe_gemm.py :: moe_gemm_pallas (_kernel)
 //
 // x (E,C,d) and w (E,d,f), both bf16 or both f32, contiguous; output (E,C,f)
-// in x's dtype, every product summed in f32 and rounded once.  Like the
-// Pallas kernel it takes no count of the used capacity slots and skips
-// nothing: every expert's whole (C, f) tile is computed.  Unlike it, no
+// in x's dtype, every product summed in f32 and rounded once.  No
 // dimension need divide a tile: the ragged edges of C, d and f are masked
 // (loads past an edge read 0, stores past it are dropped), so the decode
-// shape's 8 rows and d_ff 1,408 (5.5 x 256) run as they are.
-//
+// shape's 8 rows and d_ff 1,408 (5.5 x 256) run as they are.  The Pallas
+// kernel computes every expert's whole (C, f) tile, though its docstring
+// (moe_gemm.py:12-15) names the skipping of empty blocks as its intent.
+// The mma body (decode and serve) skips them: a block whose rows of x are
+// all zero reads no weights and writes +0, which is what the dense product
+// gives there for finite weights (every term is +-0 and an f32 sum of +-0
+// from +0 is +0), so the output equals the dense product exactly.  The
+// precondition is finite weights: with an inf or NaN in a skipped expert's
+// weights the dense product gives NaN where this gives 0.  A decode step's
+// 4 rows x top-6 touch at most 24 of Moonlight's 64 experts, so most of
+// the 369 MB of weights per product is never read.
+
 // The Pallas grid (E, C/bc, f/bf, d/bd) accumulates over its innermost,
 // sequential d axis in VMEM scratch.  Here a block loops over d itself,
 // the sums in registers.  Three bodies; ops.kernel_path(e, c, d, f, dtype,
@@ -41,12 +49,16 @@
 //    the consumers.
 //  * "mma", the same bf16 inputs with fewer rows (decode and serve: 4 or 8
 //    rows per expert, byte-bound): `mma.sync.m16n8k16`.  A block is 4 warps
-//    over a 64 x 128 tile of one expert (blockIdx.z), 32 x 64 per warp
-//    (2 x 8 fragments); each 32-deep slice of x and w is staged in shared
-//    memory with 16-byte loads, and fragments are read with `ldmatrix`
-//    (`.trans` for w, which is stored d-major).  The next slice's global
-//    loads are issued into registers before the current slice's products,
-//    so they overlap.
+//    over 16, 32 or 64 rows (the fewest m16 tiles that hold C, up to 4) and
+//    128 columns of one expert (blockIdx.z), 32 columns a warp.  First it
+//    tests its rows of x (at most 64 x d from L2; the bits of every bf16
+//    but the sign, so -0.0 counts as zero); a dead block writes its tile as
+//    +0 and exits.  A live block streams 64-deep slices of x and w (16 KB of
+//    w a slice) through a ring of shared-memory stages fed by 16-byte
+//    `cp.async`: up to 16 rows, 3 stages, two slices in flight while one
+//    computes; with four blocks per SM that keeps 128 KB of weight reads in
+//    flight per SM.  Fragments are read with `ldmatrix` (`.trans` for w,
+//    which is stored d-major, its rows swizzled).
 //  * "simt", anything else (f32; bf16 with odd widths or misaligned): a
 //    CUDA-core tile of 64 x 64 per 256 threads, 4 x 4 outputs a thread, in
 //    f32 fmaf.
@@ -56,7 +68,8 @@
 //    into C = 960: 2*E*C*d*f = 3.54e11 FLOP, 0.358 ms at 989 TFLOP/s (bf16
 //    dense), against 0.24 ms for its 794 MB -- operations;
 //  * decode, C = 8 (one slot per row): 369 MB of expert weights read once,
-//    0.110 ms at 3.35 TB/s -- bytes.
+//    0.110 ms at 3.35 TB/s -- bytes; with the skip, only the live experts'
+//    5.77 MB each (at most 24 x 5.77 = 138 MB, 0.041 ms, at 4 rows).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,153 +84,180 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// ---------------------------------------------------------------- tensor cores
-constexpr int kBM = 64;  // rows of C per block
-constexpr int kBN = 128;  // columns of f per block
-constexpr int kBK = 32;  // depth of one staged slice of d
-constexpr int kWarpsM = 2, kWarpsN = 2;
-constexpr int kThreads = 32 * kWarpsM * kWarpsN;
-constexpr int kWM = kBM / kWarpsM;  // 32 rows per warp
-constexpr int kWN = kBN / kWarpsN;  // 64 columns per warp
-constexpr int kMT = kWM / 16;  // m16 fragments per warp
-constexpr int kNT = kWN / 8;  // n8 fragments per warp
-// Shared row strides (bf16): 80 and 272 bytes, so the 8 rows an ldmatrix
+// ---------------------------------------------------------------- mma.sync
+constexpr int kBN = 128;         // columns of f per block, 32 per warp
+constexpr int kBK = 64;          // depth of one ring stage
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWN = kBN / kWarps;  // 32 columns per warp
+constexpr int kNT = kWN / 8;       // n8 fragments per warp
+// Shared rows: x's padded to 144 bytes, w's 256 bytes with the 16-byte
+// chunk c of row r stored at c ^ (r % 8) (unpadded, so that a stage is 16
+// KB of w and four blocks fit on an SM); either way the 8 rows an ldmatrix
 // reads fall in 8 distinct 16-byte bank groups.
 constexpr int kAStr = kBK + 8;
-constexpr int kBStr = kBN + 8;
-constexpr int kAChunks = kBM * kBK / 8 / kThreads;  // 16-byte chunks per thread
-constexpr int kBChunks = kBK * kBN / 8 / kThreads;
+constexpr int kBStr = kBN;
+
+__device__ __forceinline__ int w_chunk(int r, int col) { return ((col >> 3) ^ (r & 7)) << 3; }
 
 using kern::mma_bf16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+// MT m16 tiles of rows per block: 16, 32 or 64 rows.  Up to 16 rows
+// (decode, serve) the ring has 3 stages, two slices in flight while one
+// computes (55 KB: four blocks and 128 KB of weight reads in flight per
+// SM, faster in development than 2-3 blocks with 4-5 stages); with more
+// rows the products weigh more than the bytes in flight and 2 stages let
+// 4-5 blocks share an SM (faster at 33 and 64 rows).
+template <int MT>
+struct MmaLayout {
+  static constexpr int ROWS = 16 * MT;
+  static constexpr int STAGES = MT == 1 ? 3 : 2;
+  static constexpr int A = ROWS * kAStr;  // x slice, bf16
+  static constexpr int B = kBK * kBStr;   // w slice, bf16
+  static constexpr int STAGE = A + B;
+  static constexpr int BYTES = STAGES * STAGE * 2;
+};
 
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
+template <int MT>
 __global__ void __launch_bounds__(kThreads)
     moe_gemm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                        bf16* __restrict__ out, int c, int d, int f) {
-  __shared__ __align__(16) bf16 as[kBM * kAStr];
-  __shared__ __align__(16) bf16 bs[kBK * kBStr];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const bf16* xe = x + (long long)blockIdx.z * c * d;
-  const bf16* we = w + (long long)blockIdx.z * d * f;
-  bf16* oe = out + (long long)blockIdx.z * c * f;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp / kWarpsN) * kWM, wn = (warp % kWarpsN) * kWN;
+                        bf16* __restrict__ out, int c, int d, int f, int skip_dead,
+                        int dead_expert) {
+  using L = MmaLayout<MT>;
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  bf16* sm = reinterpret_cast<bf16*>(mma_smem);
+  const int m0 = blockIdx.y * L::ROWS, n0 = blockIdx.x * kBN, e = blockIdx.z;
+  const bf16* xe = x + (long long)e * c * d;
+  const bf16* we = w + (long long)e * d * f;
+  bf16* oe = out + (long long)e * c * f;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wn = warp * kWN;
+  const int rows = min(L::ROWS, c - m0);
 
-  // Global -> registers for the slice at depth k0 (zeros past the edges:
-  // d and f are multiples of 8, so a 16-byte chunk is wholly in or out).
-  uint4 ra[kAChunks], rb[kBChunks];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      const int chunk = tid + i * kThreads;
-      const int r = chunk / (kBK / 8), kc = (chunk % (kBK / 8)) * 8;
-      const int row = m0 + r, k = k0 + kc;
-      ra[i] = (row < c && k < d) ? *reinterpret_cast<const uint4*>(xe + (long long)row * d + k)
-                                 : make_uint4(0, 0, 0, 0);
+  if (skip_dead) {
+    // The block's rows of x, contiguous: dead if every element is +0 or -0.
+    const uint4* xr = reinterpret_cast<const uint4*>(xe + (long long)m0 * d);
+    const int chunks = rows * (d / 8);
+    uint32_t bits = 0;
+#pragma unroll 8
+    for (int i = tid; i < chunks; i += kThreads) {
+      const uint4 u = __ldg(xr + i);
+      bits |= (u.x | u.y | u.z | u.w) & 0x7FFF7FFFu;
     }
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int chunk = tid + i * kThreads;
-      const int r = chunk / (kBN / 8), nc = (chunk % (kBN / 8)) * 8;
-      const int k = k0 + r, n = n0 + nc;
-      rb[i] = (k < d && n < f) ? *reinterpret_cast<const uint4*>(we + (long long)k * f + n)
-                               : make_uint4(0, 0, 0, 0);
+    if (!__syncthreads_or(bits != 0) || e == dead_expert) {
+      const int vecs = min(kBN, f - n0) / 8;  // f is a multiple of 8
+      for (int i = tid; i < rows * vecs; i += kThreads)
+        *reinterpret_cast<uint4*>(oe + (long long)(m0 + i / vecs) * f + n0 + (i % vecs) * 8) =
+            make_uint4(0, 0, 0, 0);
+      return;
     }
-  };
-  auto store = [&]() {
+  }
+
+  // Slice kt (depth kt * kBK) into stage kt % STAGES; zeros past C, d and
+  // f (d and f are multiples of 8, so a 16-byte chunk is wholly in or out).
+  const int nk = (d + kBK - 1) / kBK;
+  auto load = [&](int kt) {
+    if (kt < nk) {
+      const int k0 = kt * kBK;
+      bf16* as = sm + (kt % L::STAGES) * L::STAGE;
+      bf16* bs = as + L::A;
 #pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      const int chunk = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(as + (chunk / (kBK / 8)) * kAStr + (chunk % (kBK / 8)) * 8) =
-          ra[i];
-    }
+      for (int j = 0; j < L::ROWS * (kBK / 8) / kThreads; ++j) {
+        const int i = tid + j * kThreads;
+        const int r = i / (kBK / 8), kc = (i % (kBK / 8)) * 8;
+        const bool live = r < rows && k0 + kc < d;
+        kern::cp_async16(as + r * kAStr + kc, live ? xe + (long long)(m0 + r) * d + k0 + kc : xe,
+                         live);
+      }
 #pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int chunk = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(bs + (chunk / (kBN / 8)) * kBStr + (chunk % (kBN / 8)) * 8) =
-          rb[i];
+      for (int j = 0; j < kBK * (kBN / 8) / kThreads; ++j) {
+        const int i = tid + j * kThreads;
+        const int r = i / (kBN / 8), nc = (i % (kBN / 8)) * 8;
+        const bool live = k0 + r < d && n0 + nc < f;
+        kern::cp_async16(bs + r * kBStr + w_chunk(r, nc),
+                         live ? we + (long long)(k0 + r) * f + n0 + nc : we, live);
+      }
     }
+    kern::cp_async_commit();  // one group per slice slot, empty or not
   };
 
-  float acc[kMT][kNT][4];
+  float acc[MT][kNT][4];
 #pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
     for (int nj = 0; nj < kNT; ++nj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+      for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
 
-  const int nk = (d + kBK - 1) / kBK;
-  if (nk > 0) {
-    load(0);
-    store();
-  }
-  __syncthreads();
+#pragma unroll
+  for (int kt = 0; kt < L::STAGES - 1; ++kt) load(kt);
   for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) * kBK);  // in flight during the products below
+    kern::cp_async_wait<L::STAGES - 2>();  // this thread's copies of slice kt
+    __syncthreads();  // ... and everyone's; slice kt - 1 is consumed
+    load(kt + L::STAGES - 1);  // into slice kt - 1's stage
+    const bf16* as = sm + (kt % L::STAGES) * L::STAGE;
+    const bf16* bs = as + L::A;
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      // A fragments (m16n8k16 row layout) of the warp's two m16 tiles.
-      uint32_t af[kMT][4];
+      // A fragments (m16n8k16 row layout) of the block's m16 tiles.
+      uint32_t af[MT][4];
 #pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
-        ldmatrix_x4(af[mi], as + (wm + mi * 16 + (lane & 15)) * kAStr + kk * 16 + (lane >> 4) * 8);
+      for (int mi = 0; mi < MT; ++mi)
+        kern::ldmatrix_x4(af[mi], as + (mi * 16 + (lane & 15)) * kAStr + kk * 16 + (lane >> 4) * 8);
       // B fragments two n8 tiles at a time: lanes 0-7 rows k 0-7 and lanes
       // 8-15 rows k 8-15 of tile nj; lanes 16-31 the same for tile nj + 1.
 #pragma unroll
       for (int nj = 0; nj < kNT; nj += 2) {
         uint32_t bfrag[4];
-        ldmatrix_x4_trans(bfrag, bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kBStr +
-                                     wn + nj * 8 + (lane >> 4) * 8);
+        const int br = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        kern::ldmatrix_x4_trans(bfrag, bs + br * kBStr + w_chunk(br, wn + nj * 8 + (lane >> 4) * 8));
 #pragma unroll
-        for (int mi = 0; mi < kMT; ++mi) {
+        for (int mi = 0; mi < MT; ++mi) {
           mma_bf16(acc[mi][nj], af[mi], bfrag[0], bfrag[1]);
           mma_bf16(acc[mi][nj + 1], af[mi], bfrag[2], bfrag[3]);
         }
       }
     }
-    __syncthreads();  // the slice is consumed
-    if (kt + 1 < nk) {
-      store();
-      __syncthreads();
-    }
   }
+  kern::cp_async_wait<0>();
 
   // C fragments: acc[..][0..1] row grp, acc[..][2..3] row grp + 8, columns
   // 2 tig + {0, 1}.  f is a multiple of 8, so a pair is wholly in or out.
   const int grp = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm + mi * 16 + grp + half * 8;
-      if (row >= c) continue;
+      const int r = mi * 16 + grp + half * 8;
+      if (r >= rows) continue;
 #pragma unroll
       for (int nj = 0; nj < kNT; ++nj) {
         const int col = n0 + wn + nj * 8 + tig * 2;
-        if (col < f) {
-          __nv_bfloat162 pair =
+        if (col < f)
+          *reinterpret_cast<__nv_bfloat162*>(oe + (long long)(m0 + r) * f + col) =
               __floats2bfloat162_rn(acc[mi][nj][half * 2], acc[mi][nj][half * 2 + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(oe + (long long)row * f + col) = pair;
-        }
       }
     }
+}
+
+template <int MT>
+cudaError_t launch_mma(const void* x, const void* w, void* out, int e, int c, int d, int f,
+                       int skip_dead, int dead_expert, cudaStream_t st) {
+  using L = MmaLayout<MT>;
+  static unsigned long long sized = 0;  // devices whose attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(sized >> dev & 1)) {
+    err = cudaFuncSetAttribute(moe_gemm_mma_kernel<MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return err;
+    sized |= 1ULL << dev;
+  }
+  dim3 grid((f + kBN - 1) / kBN, (c + L::ROWS - 1) / L::ROWS, e);
+  moe_gemm_mma_kernel<MT><<<grid, kThreads, L::BYTES, st>>>(
+      (const bf16*)x, (const bf16*)w, (bf16*)out, c, d, f, skip_dead, dead_expert);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- CUDA cores
@@ -514,11 +554,16 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 }  // namespace
 
 // path: 0 = simt, 1 = mma, 2 = wgmma (ops.kernel_path); dtype: 0 = float32,
-// 1 = bfloat16.  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a path that does not take the input,
-// cudaErrorMisalignedAddress for a tensor core path given a misaligned one).
+// 1 = bfloat16.  skip_dead (mma body only): blocks whose rows of x are all
+// +-0 read no weights and write +0 (0 computes every block, as the other
+// bodies do); dead_expert: an expert the mma body treats as dead whatever
+// its rows (a planted fault for chip_smoke.py; -1 for none).  Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for a path that does
+// not take the input, cudaErrorMisalignedAddress for a tensor core path
+// given a misaligned one).
 extern "C" int moe_gemm_launch(const void* x, const void* w, void* out, int e, int c, int d, int f,
-                               int dtype, int path, void* stream) {
+                               int dtype, int path, int skip_dead, int dead_expert,
+                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (path == 0 && dtype == 0) return (int)launch_simt<float>(x, w, out, e, c, d, f, st);
   if (path == 0 && dtype == 1) return (int)launch_simt<bf16>(x, w, out, e, c, d, f, st);
@@ -526,8 +571,7 @@ extern "C" int moe_gemm_launch(const void* x, const void* w, void* out, int e, i
     return (int)cudaErrorInvalidValue;
   if (!aligned16(x) || !aligned16(w) || !aligned16(out)) return (int)cudaErrorMisalignedAddress;
   if (path == 2) return (int)launch_wgmma(x, w, out, e, c, d, f, st);
-  dim3 grid((f + kBN - 1) / kBN, (c + kBM - 1) / kBM, e);
-  moe_gemm_mma_kernel<<<grid, kThreads, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out, c,
-                                                 d, f);
-  return (int)cudaGetLastError();
+  if (c <= 16) return (int)launch_mma<1>(x, w, out, e, c, d, f, skip_dead, dead_expert, st);
+  if (c <= 32) return (int)launch_mma<2>(x, w, out, e, c, d, f, skip_dead, dead_expert, st);
+  return (int)launch_mma<4>(x, w, out, e, c, d, f, skip_dead, dead_expert, st);
 }

@@ -6,10 +6,17 @@ d and f are taken (the kernel masks ragged edges).  A CUDA tensor launches
 ``csrc/moe_gemm.cu`` on the current stream, through the body that
 :func:`kernel_path` picks; a CPU tensor takes the plain version in
 :mod:`.ref`.  Nothing falls back: a launch that fails raises.
+
+The ``"mma"`` body (decode and serve) skips the experts whose rows of x
+are all zero (those of the experts no token chose): it reads none of their
+weights and writes their rows as +0.  For finite weights that equals the
+dense product exactly; an inf or NaN in a skipped expert's weights would
+give NaN in the dense product and 0 here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -21,9 +28,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_CODES = {"simt": 0, "mma": 1, "wgmma": 2}
 #: Fewest rows per expert that take the wgmma body.  Up to 64 rows (decode
 #: and serve: 4 or 8) the product is byte-bound and the mma.sync body, one
-#: 64-row tile deep, reads the weights faster; from 65 rows it needs a
-#: second tile and the wgmma body's 256-row tiles win (chip_smoke.py phase
-#: 2 times both bodies at 64 and 65 rows; PERF.md).
+#: tile of at most 64 rows deep, reads the weights faster; from 65 rows it
+#: needs a second tile and the wgmma body's 256-row tiles win (chip_smoke.py
+#: phase 2 times both bodies at 64 and 65 rows; PERF.md).
 WGMMA_MIN_ROWS = 65
 
 
@@ -42,7 +49,7 @@ def _lib():
     lib = _build.load("moe_gemm")
     fn = lib.moe_gemm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -60,6 +67,26 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are not (E,C,d) and (E,d,f)")
 
 
+def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, path: str, *,
+           skip_dead: bool = True, dead_expert: int = -1) -> None:
+    """One launch of ``path``'s body on the current stream, without the
+    wrapper's checks or its launch count.  For the mma body,
+    ``skip_dead=False`` computes every block (the dense product the skip
+    must equal) and ``dead_expert`` treats that expert as dead whatever its
+    rows (a planted fault that chip_smoke.py's check must reject)."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    index = x.get_device()
+    switch = index != torch.cuda.current_device()
+    with torch.cuda.device(index) if switch else contextlib.nullcontext():
+        _build.check(
+            _lib().moe_gemm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
+                                   DTYPE_CODES[x.dtype], PATH_CODES[path], int(skip_dead),
+                                   dead_expert, torch._C._cuda_getCurrentRawStream(index)),
+            f"moe_gemm ({path} body)",
+        )
+
+
 def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     dev = x.device
@@ -75,15 +102,7 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(
-            lib.moe_gemm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
-                                DTYPE_CODES[x.dtype],
-                                PATH_CODES[kernel_path(e, c, d, f, x.dtype, aligned)], stream),
-            "moe_gemm",
-        )
+    launch(x, w, out, kernel_path(e, c, d, f, x.dtype, aligned))
     moe_gemm.launches += 1
     return out
 

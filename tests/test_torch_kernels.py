@@ -22,7 +22,9 @@ holds them against these plain versions there.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# CI's tier-1 job installs no torch: skip this module there, not fail collection.
+torch = pytest.importorskip("torch")
 
 from repro.engine.topology import OperatorSpec as RefOperatorSpec
 from repro.engine.topology import Topology as RefTopology

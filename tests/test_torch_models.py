@@ -32,7 +32,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# CI's tier-1 job installs no torch: skip this module there, not fail collection.
+torch = pytest.importorskip("torch")
 
 from repro.configs import ARCH_IDS
 from repro.configs import SHAPES as REF_SHAPES

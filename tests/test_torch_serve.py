@@ -27,7 +27,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+# CI's tier-1 job installs no torch: skip this module there, not fail collection.
+torch = pytest.importorskip("torch")
 
 import repro.launch.serve as ref_serve
 from repro.configs import get_config as ref_get_config
