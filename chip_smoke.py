@@ -15,18 +15,25 @@ error or mismatch:
    the attention kernels and moe_gemm in bf16 at atol = rtol = 3e-2
    (tests/test_kernels.py's bf16 tolerance) and, per output row, within 1e-2
    of the plain version's norm, rglru_scan at atol = rtol = 1e-5 (the
-   reference's); a planted fault per kernel (two equal codes swapped in the
-   sort's order, a dropped KV tile, the decode merge without its last split,
-   the scan's carry reset halfway, a skipped K slice, a live expert treated
-   as dead) must fail that check -- and time kernel, plain version and the
-   library yardstick: flash at the GLM, Moonlight and RecurrentGemma (head_dim
-   256) prefills' shapes, with a planted fault at head_dim 128 and at 256;
+   reference's, and bit-identical); a planted fault per kernel (a block's
+   slice of the partition's cluster flush dropped, two equal codes swapped
+   in the sort's order, a dropped KV tile, the decode merge without its last
+   split, the scan's carry reset halfway and a ring stage of its tma body
+   consumed twice, a skipped K slice, a live expert treated as dead) must
+   fail that check -- and time kernel, plain version and the library
+   yardstick: keygroup_partition on uniform int64, int32 and phase 3's
+   airline keys beside a same-bytes ``ids.copy_(keys)``, rglru_scan beside
+   a same-bytes ``torch.add(a, b, out=o)`` (yardsticks only: no single call
+   computes either function); flash at the GLM, Moonlight and RecurrentGemma
+   (head_dim 256) prefills' shapes, with a planted fault at head_dim 128 and
+   at 256;
    decode attention at the three models' decode shapes beside SDPA given the
    same length mask, and moe_gemm's decode and serve products (dense x, and
    x from a real top-6 dispatch, whose dead experts the kernel skips, held
    exactly equal to the same body without the skip) beside ``torch.bmm``.
-   These decode-shape times are each given twice, in three rounds: device
-   ms per call (``device_ms``, torch.profiler) and host ms per call
+   These decode-shape times, and the partition's and the scan's, are each
+   given twice, in three rounds: device ms per call (``device_ms``,
+   torch.profiler, every device op of a call) and host ms per call
    (``cuda_ms``, CUDA events around back-to-back calls), since a call of a
    few microseconds on the card can take longer than that on the host;
 3. the engine path at full size: Real Job 3 (airline → extract → sumdelay →
@@ -83,7 +90,9 @@ without CUDA, and outside a checkout that holds ``src/repro_torch``.
 ``python3 chip_smoke.py --host-us [SRC]`` runs none of that: it prints the
 host microseconds per call of the decode path's kernel wrappers
 (``host_us``), imported from SRC (default ``src``), so that two checkouts
-can be compared in one call.
+can be compared in one call.  ``--kernel-ms [SRC]`` likewise prints only
+keygroup_partition's and rglru_scan's phase-2 timings and yardsticks
+(``kernel_ms``).
 """
 
 from __future__ import annotations
@@ -302,6 +311,86 @@ def planted_fault(what: str, faulty, ref) -> tuple[float, int]:
 
 
 # --------------------------------------------------------------------- phase 2
+def partition_inputs(dev, count: int = 8) -> dict[str, list]:
+    """The key sets keygroup_partition is timed on, each as ``count``
+    batches of BATCH keys on the card (together past the 50 MB L2):
+    uniform int64 over the full range (negatives included), uniform int32
+    (sign-extended by the kernel), and the plane ids of phase 3's airline
+    batches (Zipf 1.2 over 4,000 planes: plane 0 alone is ~18 % of them)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+    return {
+        "uniform int64": [
+            torch.randint(-(2**63), 2**63 - 1, (BATCH,), dtype=torch.int64, generator=gen).to(dev)
+            for _ in range(count)],
+        "int32": [
+            torch.randint(-(2**31), 2**31 - 1, (BATCH,), dtype=torch.int64, generator=gen)
+            .to(torch.int32).to(dev) for _ in range(count)],
+        "airline": [torch.from_numpy(k).to(dev) for k, _, _ in airline_batches(count, BATCH, SEED)],
+    }
+
+
+def partition_timings(inputs: dict, nkg: int, base: int, reps: int = 50) -> dict[str, dict]:
+    """``timed_rounds`` of keygroup_partition on each key set of
+    ``partition_inputs``, beside its same-bytes yardstick ``ids.copy_(keys)``
+    (each key read once, an int64 written per key; it hashes nothing, so it
+    is a yardstick, not a library call computing the function)."""
+    import torch
+
+    from repro_torch.kernels import keygroup_partition
+
+    out = {}
+    for name, keys in inputs.items():
+        ids = torch.empty(BATCH, dtype=torch.int64, device=keys[0].device)
+        out[name] = timed_rounds({
+            "kernel": (lambda i, k=keys: keygroup_partition(k[i % len(k)], nkg, base=base), reps),
+            "copy": (lambda i, k=keys, o=ids: o.copy_(k[i % len(k)]), reps),
+        })
+    return out
+
+
+def scan_inputs(dev):
+    """RecurrentGemma's prefill scan inputs, (RG_BATCH, RG_PROMPT, lru_width)
+    f32 (503 MB, far past L2): a ~ U(0.2, 0.999), b ~ 0.1 N(0,1), h0 ~
+    N(0,1) (tests/test_kernels.py:143-146)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    b, s, w = RG_BATCH, RG_PROMPT, lm_config(RG_ARCH).lru_width
+    a = torch.empty(b, s, w, device=dev).uniform_(0.2, 0.999, generator=gen)
+    bb = 0.1 * torch.randn(b, s, w, generator=gen, device=dev)
+    h0 = torch.randn(b, w, generator=gen, device=dev)
+    return a, bb, h0
+
+
+def scan_timings(a, bb, h0, reps: int = 20) -> dict[str, dict]:
+    """``timed_rounds`` of rglru_scan beside its same-bytes yardstick
+    ``torch.add(a, b, out=o)`` (two reads and one write of the shape)."""
+    import torch
+
+    from repro_torch.kernels import rglru_scan
+
+    o = torch.empty_like(a)
+    return timed_rounds({"kernel": (lambda i: rglru_scan(a, bb, h0), reps),
+                         "add": (lambda i: torch.add(a, bb, out=o), reps)})
+
+
+def kernel_ms() -> dict:
+    """keygroup_partition (nkg KGS, base KGS, on each key set of
+    ``partition_inputs``) and rglru_scan (``scan_inputs``) timed as
+    imported, with their yardsticks (``--kernel-ms SRC`` imports them from
+    SRC, so that two checkouts can be compared in one call)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    out = {"keygroup_partition": partition_timings(partition_inputs(dev), KGS, KGS)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["rglru_scan"] = scan_timings(*scan_inputs(dev))
+    return out
+
+
 def routing_kernel_checks(dev, reps: int = 20) -> dict[str, dict]:
     """Each kernel against its plain version on the card, bit-exact; times.
 
@@ -319,53 +408,62 @@ def routing_kernel_checks(dev, reps: int = 20) -> dict[str, dict]:
     gen = torch.Generator().manual_seed(SEED)
     out = {}
 
-    # keygroup_partition: 2^20 int64 keys over the full range (negatives
-    # included), 1000 key groups, a nonzero base (extract's ids in job 3).
+    # keygroup_partition: 2^20 keys, 1000 key groups, a nonzero base
+    # (extract's ids in job 3), on each key set of partition_inputs; bit-
+    # exact, ids and histogram.  Planted fault: one block's slice of its
+    # cluster's histogram flush dropped.
+    from repro_torch.kernels.keygroup_partition import ops as kg_ops
+
     nkg, base = KGS, KGS
-    copies = [
-        torch.randint(-(2**63), 2**63 - 1, (BATCH,), dtype=torch.int64, generator=gen)
-        .to(dev)
-        for _ in range(8)
-    ]
-    ids, hist = keygroup_partition(copies[0], nkg, base=base)
-    r_ids, r_hist = keygroup_partition_ref(fold_keys64(copies[0]), nkg)
-    r_ids = r_ids + base
-    err = max(
-        int((ids - r_ids).abs().max()),
-        int((hist - r_hist).abs().max()),
-    )
-    check(err == 0, f"keygroup_partition disagrees with its plain version (err {err})")
-    check(int(hist.sum()) == BATCH, "keygroup_partition histogram does not sum to n")
-    # The int32 (sign-extended) key path of the same kernel.
-    k32 = torch.randint(-(2**31), 2**31 - 1, (BATCH,), dtype=torch.int64, generator=gen)
-    k32 = k32.to(torch.int32).to(dev)
-    ids32, hist32 = keygroup_partition(k32, nkg, base=base)
-    r32, rh32 = keygroup_partition_ref(fold_keys64(k32), nkg)
-    check(
-        torch.equal(ids32, r32 + base) and torch.equal(hist32, rh32),
-        "keygroup_partition (int32 keys) disagrees with its plain version",
-    )
-    ms = cuda_ms(lambda i: keygroup_partition(copies[i % 8], nkg, base=base), reps)
+    inputs = partition_inputs(dev)
+    cases, err = [], 0
+    for name, keys in inputs.items():
+        ids, hist = keygroup_partition(keys[0], nkg, base=base)
+        r_ids, r_hist = keygroup_partition_ref(fold_keys64(keys[0]), nkg)
+        err = max(err, int((ids - r_ids - base).abs().max()), int((hist - r_hist).abs().max()))
+        check(torch.equal(ids, r_ids + base) and torch.equal(hist, r_hist),
+              f"keygroup_partition ({name} keys) disagrees with its plain version")
+        check(int(hist.sum()) == BATCH, "keygroup_partition histogram does not sum to n")
+        cases.append(dict(keys=name, body=kg_ops.kernel_path(nkg, keys[0].element_size(), BATCH,
+                                                             keys[0].data_ptr())))
+    keys = inputs["uniform int64"][0]
+    f_ids, f_hist = kg_ops.launch(keys, nkg, base, drop_block=3)
+    r_ids, r_hist = keygroup_partition_ref(fold_keys64(keys), nkg)
+    check(torch.equal(f_ids, r_ids + base), "the planted flush fault changed the ids")
+    check(not torch.equal(f_hist, r_hist), "the histogram check passes a planted fault (a "
+          "block's slice of its cluster flush dropped)")
+    lost = BATCH - int(f_hist.sum())
+    del f_ids, f_hist
+    times = partition_timings(inputs, nkg, base)
     plain = cuda_ms(
-        lambda i: keygroup_partition_ref(fold_keys64(copies[i % 8]), nkg), reps
-    )
-    b_ms, b_by = bound_ms(BATCH * 8 + BATCH * 8 + nkg * 8, BATCH * 14)
+        lambda i: keygroup_partition_ref(fold_keys64(inputs["uniform int64"][i % 8]), nkg), reps)
+    for case in cases:
+        t = times[case["keys"]]
+        key_bytes = inputs[case["keys"]][0].element_size()
+        b_ms, b_by = bound_ms(BATCH * key_bytes + BATCH * 8 + nkg * 8, BATCH * 14)
+        case.update(ms=t["kernel"]["device_ms"], host_ms=t["kernel"]["host_ms"],
+                    yardstick_ms=t["copy"]["device_ms"], bound_ms=b_ms, bound_by=b_by, times=t)
+        log(f"[kernel] keygroup_partition n={BATCH} nkg={nkg}, {case['keys']} keys, "
+            f"{case['body']} body: kernel {fmt_rounds(t['kernel'])}; yardstick ids.copy_(keys) "
+            f"{fmt_rounds(t['copy'])}; bound {b_ms:.5f} ms by {b_by} "
+            f"({b_ms / case['ms']:.1%} of it on the device)")
+    log(f"[kernel] keygroup_partition: plain {plain:.4f} ms, max_abs_err={err}; planted fault "
+        f"(block 3's flush slice dropped): {lost} counts lost, rejected")
+    main = {k: v for k, v in cases[0].items() if k not in ("keys", "times")}
     out["keygroup_partition"] = dict(
         route="cuda",
         source="src/repro_torch/kernels/keygroup_partition/csrc/keygroup_partition.cu",
         replaces="src/repro/kernels/keygroup_partition/keygroup_partition.py:76",
         max_abs_err=float(err),
-        ms=ms,
         plain_ms=plain,
-        bound_ms=b_ms,
-        bound_by=b_by,
         library_ms=None,
+        yardstick="ids.copy_(keys), same bytes (no single call computes the function)",
+        planted_fault_lost_counts=lost,
         shape=f"keys ({BATCH},) int64, nkg={nkg}, base={base}",
+        cases=cases,
+        **main,
     )
-    log(
-        f"[kernel] keygroup_partition n={BATCH} nkg={nkg}: {ms:.4f} ms "
-        f"(plain {plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}), max_abs_err={err}"
-    )
+    del inputs
 
     # radix_sort: the engine's composite codes — int16 in [0, 16000)
     # (16 nodes x 1000 key groups, the main path) and int32 in [0, 40000).
@@ -696,21 +794,25 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
     from repro_torch.kernels import moe_gemm, rglru_scan
     from repro_torch.kernels.moe_gemm.ops import kernel_path as moe_kernel_path
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.models.moe import capacity
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     out = {}
 
-    b, s, w = RG_BATCH, RG_PROMPT, lm_config(RG_ARCH).lru_width
-    a = torch.empty(b, s, w, device=dev).uniform_(0.2, 0.999, generator=gen)
-    bb = 0.1 * torch.randn(b, s, w, generator=gen, device=dev)
-    h0 = torch.randn(b, w, generator=gen, device=dev)
+    a, bb, h0 = scan_inputs(dev)
+    b, s, w = a.shape
+    body = scan_ops.kernel_path(a.dtype, w, a.data_ptr() % 16 == 0 and bb.data_ptr() % 16 == 0)
     got = rglru_scan(a, bb, h0)
     ref = rglru_scan_ref(a, bb, h0)
     torch.cuda.synchronize()
     err, bad = max_err(got, ref, SCAN_TOL)
     check(bad == 0, f"rglru_scan: {bad} elements outside atol=rtol=1e-5 (max err {err})")
+    check(torch.equal(got, ref), f"rglru_scan is not bit-identical to its plain version "
+          f"(max err {err})")
+    # Planted faults: the carry reset to 0 at S/2; a ring stage consumed
+    # twice (the tma body).
     half = s // 2
     faulty = torch.cat([
         rglru_scan(a[:, :half].contiguous(), bb[:, :half].contiguous(), h0),
@@ -718,25 +820,43 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
     ], dim=1)
     fault_err, fault_bad = max_err(faulty, ref, SCAN_TOL)
     check(fault_bad > 0, "the scan check passes a planted fault (carry reset at S/2)")
+    _, steps, _ = scan_ops.plan(b, s, w, a.dtype)
+    scan_ops.launch(a, bb, h0, faulty, "tma", fault_stage=5)
+    torch.cuda.synchronize()
+    stage_err, stage_bad = max_err(faulty, ref, SCAN_TOL)
+    check(stage_bad > 0 and not torch.equal(faulty, ref),
+          "the scan check passes a planted fault (ring stage 5 consumed twice)")
+    check(torch.equal(faulty[:, : 5 * steps], ref[:, : 5 * steps]),
+          "the planted stage fault changed the steps before it")
     del faulty
-    ms = cuda_ms(lambda i: rglru_scan(a, bb, h0), 5 * reps)
+    times = scan_timings(a, bb, h0)
     plain = cuda_ms(lambda i: rglru_scan_ref(a, bb, h0), 3)
     b_ms, b_by = bound_ms(4 * (3 * a.numel() + h0.numel()), 2 * a.numel(), F32_FLOPS_PER_S)
-    log(f"[kernel] rglru_scan B={b} S={s} W={w} f32: {ms:.4f} ms (plain {plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by}; {4 * 3 * a.numel() / ms / 1e9:.3f} TB/s), max_abs_err={err}; "
-        f"planted fault (carry reset at S/2): max err {fault_err}, {fault_bad} elements outside "
-        f"SCAN_TOL")
+    ms = times["kernel"]["device_ms"]
+    log(f"[kernel] rglru_scan B={b} S={s} W={w} f32, {body} body ({scan_ops.TILE}-channel "
+        f"tiles): kernel "
+        f"{fmt_rounds(times['kernel'])} ({4 * 3 * a.numel() / ms / 1e9:.3f} TB/s); yardstick "
+        f"torch.add(a, b, out=o) {fmt_rounds(times['add'])}; plain {plain:.4f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by} ({b_ms / ms:.1%} of it); bit-identical (max_abs_err={err}); "
+        f"planted faults: carry reset at S/2, max err {fault_err}, {fault_bad} elements outside "
+        f"SCAN_TOL; ring stage 5 consumed twice, max err {stage_err}, {stage_bad} outside")
     out["rglru_scan"] = dict(
         route="cuda",
         source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan/rglru_scan.py:45",
         max_abs_err=err,
-        planted_fault_elements=fault_bad,
+        planted_fault_elements=min(fault_bad, stage_bad),
+        body=body,
+        tile=scan_ops.TILE,
         ms=ms,
+        host_ms=times["kernel"]["host_ms"],
         plain_ms=plain,
         bound_ms=b_ms,
         bound_by=b_by,
         library_ms=None,
+        yardstick="torch.add(a, b, out=o), same bytes (no single call computes the function)",
+        yardstick_ms=times["add"]["device_ms"],
+        times=times,
         shape=f"a, b ({b},{s},{w}) h0 ({b},{w}) f32",
     )
     del a, bb, h0, got, ref
@@ -1796,10 +1916,11 @@ def gpu_name_and_limit() -> str:
 
 def main() -> int:
     t_start = time.perf_counter()
-    # ``--host-us [SRC]``: only the wrappers' host time per call, from the
+    # ``--host-us [SRC]`` / ``--kernel-ms [SRC]``: only the decode wrappers'
+    # host time per call / the partition and scan kernels' times, from the
     # port under SRC (default: this checkout's), as one JSON line.
-    host_only = sys.argv[1:2] == ["--host-us"]
-    src = Path(sys.argv[2]).resolve() if host_only and len(sys.argv) > 2 else SRC
+    mode = sys.argv[1] if sys.argv[1:2] in (["--host-us"], ["--kernel-ms"]) else None
+    src = Path(sys.argv[2]).resolve() if mode and len(sys.argv) > 2 else SRC
     if not (src / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: {src}/repro_torch not found", file=sys.stderr)
         return 2
@@ -1812,9 +1933,18 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    if host_only:
+    if mode == "--host-us":
         card = gpu_name_and_limit()
         print(json.dumps({"src": str(src), "card": card, "host_us_per_call": host_us()}))
+        return 0
+    if mode == "--kernel-ms":
+        card = gpu_name_and_limit()
+        try:
+            times = kernel_ms()
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"src": str(src), "card": card, "kernel_ms": times}))
         return 0
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 

@@ -3,13 +3,14 @@
 ``rglru_scan(a, b, h0)`` takes a, b (B,S,W), contiguous, both bf16 or both
 f32, and h0 (B,W) in any float dtype (the carry is f32), and returns
 ``h_t = a_t * h_{t-1} + b_t`` as (B,S,W) in a's dtype.  A CUDA tensor
-launches ``csrc/rglru_scan.cu`` on the current stream; a CPU tensor takes
-the plain version in :mod:`.ref`.  Nothing falls back: a launch that fails
-raises.
+launches ``csrc/rglru_scan.cu`` on the current stream, through the body
+that :func:`kernel_path` picks; a CPU tensor takes the plain version in
+:mod:`.ref`.  Nothing falls back: a launch that fails raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -18,15 +19,58 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PATH_CODES = {"direct": 0, "tma": 1}
+#: The tma body's channels per block, ring stages, and bytes of one
+#: channel's a (and b) per stage (the kernel's kTile, kStages, kStepBytes):
+#: at RecurrentGemma's prefill, (8, 2048, 2560), 128 blocks, one wave of at
+#: most one block per SM.
+TILE, STAGES, STEP_BYTES = 160, 3, 128
+
+
+def kernel_path(dtype: torch.dtype, width: int, aligned: bool) -> str:
+    """The CUDA body for a, b (B,S,width) of ``dtype``: ``"tma"`` (a TMA-fed
+    ring of stages in shared memory) when a row is a whole number of 16
+    bytes (width % 4 == 0 in f32, % 8 in bf16) and a and b are 16-byte
+    aligned, which TMA needs; ``"direct"`` (each thread loads its own
+    channel) otherwise."""
+    row_bytes = width * dtype.itemsize
+    return "tma" if row_bytes % 16 == 0 and aligned else "direct"
+
+
+def plan(batch: int, s_len: int, width: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """The tma body's (blocks, steps per stage, stages): one block per
+    :data:`TILE` channels of a batch row (the last tile of a row partial
+    when TILE does not divide W), each stage :data:`STEP_BYTES` of each
+    channel's a and b, the last stage short when its steps do not divide S."""
+    steps = STEP_BYTES // dtype.itemsize
+    return batch * -(-width // TILE), steps, -(-s_len // steps)
 
 
 def _lib():
     lib = _build.load("rglru_scan")
     fn = lib.rglru_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, out: torch.Tensor, path: str, *,
+           fault_stage: int = -1) -> None:
+    """One launch of ``path``'s body on the current stream, without the
+    wrapper's checks or its launch count; h0 float32 and contiguous.
+    ``fault_stage`` (tma body) runs the consumers through that ring stage
+    twice: a planted fault that chip_smoke.py's check must reject."""
+    bsz, s, w = a.shape
+    index = a.get_device()
+    switch = index != torch.cuda.current_device()
+    with torch.cuda.device(index) if switch else contextlib.nullcontext():
+        _build.check(
+            _lib().rglru_scan_launch(a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(),
+                                     bsz, s, w, DTYPE_CODES[a.dtype], PATH_CODES[path],
+                                     fault_stage, torch._C._cuda_getCurrentRawStream(index)),
+            f"rglru_scan ({path} body)",
+        )
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> None:
@@ -58,16 +102,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    carry = h0.to(torch.float32).contiguous()
-    bsz, s, w = a.shape
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.check(
-            lib.rglru_scan_launch(a.data_ptr(), b.data_ptr(), carry.data_ptr(), out.data_ptr(),
-                                  bsz, s, w, DTYPE_CODES[a.dtype], stream),
-            "rglru_scan",
-        )
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    launch(a, b, h0.to(torch.float32).contiguous(), out,
+           kernel_path(a.dtype, a.shape[2], aligned))
     rglru_scan.launches += 1
     return out
 

@@ -64,20 +64,117 @@ def _keys(n, dtype, seed):
     )
 
 
+def _partition_equal(keys, nkg, base=0):
+    """One launch on the card, ids and histogram equal to the plain version."""
+    reset_launch_counts()
+    ids, hist = keygroup_partition(keys, nkg, base=base)
+    assert launch_counts()["keygroup_partition"] == 1
+    r_ids, r_hist = keygroup_partition_ref(fold_keys64(keys.cpu()), nkg)
+    assert torch.equal(ids.cpu(), r_ids + base)
+    assert torch.equal(hist.cpu(), r_hist)
+    return ids, hist
+
+
 @pytest.mark.parametrize("dtype", [torch.int64, torch.int32], ids=["i8", "i4"])
 @pytest.mark.parametrize(
     "n,nkg,base",
     [(1, 1, 0), (7, 3, 0), (257, 32, 32), (2000, 257, 5), (4096, 4096, 0),
-     (100_000, 60_000, 1), (1 << 20, 1000, 3000)],
+     (100_000, 60_000, 1), (1 << 20, 1000, 3000),
+     # n of 1-3 and one off a multiple of either vector width (2 or 4 keys);
+     # nkg either side of the shared-memory limit (51,200) and far past it.
+     (2, 2, 0), (3, 3, 7), (4095, 1000, 0), (4097, 1000, 1), (8191, 2, 0),
+     (70_001, 51_199, 0), (70_001, 51_200, 2), (70_001, 51_201, 0), (50_000, 65_537, 0)],
 )
 def test_partition_kernel_matches_plain(cuda, n, nkg, base, dtype):
-    keys = _keys(n, dtype, n + nkg)
-    reset_launch_counts()
-    ids, hist = keygroup_partition(keys.to(cuda), nkg, base=base)
-    assert launch_counts()["keygroup_partition"] == 1
-    r_ids, r_hist = keygroup_partition_ref(fold_keys64(keys), nkg)
-    assert torch.equal(ids.cpu(), r_ids + base)
-    assert torch.equal(hist.cpu(), r_hist)
+    _partition_equal(_keys(n, dtype, n + nkg).to(cuda), nkg, base)
+
+
+def _unmix32(h):
+    """The inverse of the murmur3 finisher (each step is a bijection of
+    uint32): keys whose hash is ``h``, as non-negative int64."""
+    inv1, inv2, m = pow(0x85EBCA6B, -1, 2**32), pow(0xC2B2AE35, -1, 2**32), 2**32 - 1
+    h = np.asarray(h, dtype=np.uint64)
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(inv2)) & np.uint64(m)
+    h ^= (h >> np.uint64(13)) ^ (h >> np.uint64(26))
+    h = (h * np.uint64(inv1)) & np.uint64(m)
+    h ^= h >> np.uint64(16)
+    return torch.from_numpy(h.astype(np.int64))
+
+
+@pytest.mark.parametrize("nkg", [1, 2, 3, 1000, 51_200, 65_537, 1_000_003])
+def test_partition_kernel_edge_dividends(cuda, nkg):
+    """Keys whose masked hash is 0, 2^31 - 1 and multiples of nkg +- 1 (with
+    and without the masked top bit): the magic division's edges."""
+    k = np.arange(0, 2**31 // nkg + 1, max(1, 2**31 // nkg // 300), dtype=np.int64) * nkg
+    x = np.concatenate([[0, 1, 2**31 - 2, 2**31 - 1], k, k - 1, k + 1])
+    x = x[(x >= 0) & (x < 2**31)]
+    keys = _unmix32(np.concatenate([x, x + 2**31]))
+    ids, _ = _partition_equal(keys.to(cuda), nkg)
+    assert torch.equal(ids.cpu()[: len(x)], torch.from_numpy(x % nkg))
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32], ids=["i8", "i4"])
+@pytest.mark.parametrize("kind", ["all_equal", "zipf", "airline"])
+@pytest.mark.parametrize("nkg", [1000, 60_000])
+def test_partition_kernel_skewed_keys(cuda, kind, nkg, dtype):
+    """Every key equal (one bucket takes every warp's whole count), Zipf
+    1.1 keys, and phase 3's airline plane ids (Zipf 1.2)."""
+    n = 300_001
+    rng = np.random.default_rng(nkg)
+    if kind == "all_equal":
+        keys = np.full(n, -12345, dtype=np.int64)
+    elif kind == "zipf":
+        keys = np.minimum(rng.zipf(1.1, size=n), 10**6).astype(np.int64) * 7919 - 10**6
+    else:
+        from repro_torch.data import StreamSpec, airline_stream
+
+        keys = next(airline_stream(StreamSpec(rate=n, fluctuation=0.0, seed=0)))[0]
+    _partition_equal(torch.from_numpy(keys).to(dtype).to(cuda), nkg, base=5)
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.int64, 1), (torch.int32, 1), (torch.int32, 2),
+                                          (torch.int32, 3)])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 10_001])
+def test_partition_kernel_takes_unaligned_slices(cuda, dtype, offset, n):
+    """A slice that starts off a 16-byte boundary: a scalar head, ids lined
+    up with the keys."""
+    from repro_torch.kernels.keygroup_partition.ops import kernel_path
+
+    keys = _keys(n + offset, dtype, n).to(cuda)[offset:]
+    assert keys.data_ptr() % 16 != 0
+    assert kernel_path(1000, keys.element_size(), n, keys.data_ptr()) == "shared/scalar edges"
+    _partition_equal(keys, 1000, base=3)
+
+
+def test_partition_kernel_back_to_back_and_on_two_streams(cuda):
+    """The kernel's scratch words (a ready flag, an arrival count) are 0
+    again after every launch: launches queued without a sync, on one stream
+    and on two, with each body."""
+    keys = [_keys(n, torch.int64, n).to(cuda) for n in (1 << 20, 12_345, 777)]
+    outs = [keygroup_partition(k, nkg) for k, nkg in zip(keys, (1000, 1000, 60_000))]
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        side_out = keygroup_partition(keys[0], 999)
+    torch.cuda.synchronize()
+    for k, nkg, (ids, hist) in zip(keys, (1000, 1000, 60_000), outs):
+        r_ids, r_hist = keygroup_partition_ref(fold_keys64(k.cpu()), nkg)
+        assert torch.equal(ids.cpu(), r_ids) and torch.equal(hist.cpu(), r_hist)
+    r_ids, r_hist = keygroup_partition_ref(fold_keys64(keys[0].cpu()), 999)
+    assert torch.equal(side_out[0].cpu(), r_ids) and torch.equal(side_out[1].cpu(), r_hist)
+
+
+def test_partition_kernel_planted_flush_fault_shows(cuda):
+    """A block's slice of its cluster's flush dropped: the ids stay right,
+    the histogram does not (and the next launch is right again)."""
+    from repro_torch.kernels.keygroup_partition import ops
+
+    keys = _keys(1 << 20, torch.int64, 5).to(cuda)
+    ids, hist = ops.launch(keys, 1000, drop_block=3)
+    r_ids, r_hist = keygroup_partition_ref(fold_keys64(keys.cpu()), 1000)
+    assert torch.equal(ids.cpu(), r_ids)
+    assert not torch.equal(hist.cpu(), r_hist) and int(hist.sum()) < keys.numel()
+    _partition_equal(keys, 1000)
 
 
 @pytest.mark.parametrize(
@@ -357,19 +454,71 @@ def test_glm4_smoke_decode_on_card_matches_cpu(cuda):
     assert np.array_equal(dec_g.argmax(-1)[clear], dec_c.argmax(-1)[clear])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,s,w", [(1, 1, 1), (2, 17, 33), (3, 100, 260), (2, 256, 256),
-                                   (8, 2048, 2560)])
-def test_rglru_scan_kernel_matches_plain_bitwise(cuda, b, s, w, dtype):
-    g = torch.Generator().manual_seed(b + s + w)
+def _scan_inputs(b, s, w, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
     a = (0.2 + 0.799 * torch.rand(b, s, w, generator=g)).to(dtype)
     bb = (0.1 * torch.randn(b, s, w, generator=g)).to(dtype)
-    h0 = torch.randn(b, w, generator=g)
+    return a, bb, torch.randn(b, w, generator=g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,w", [(1, 1, 1), (2, 17, 33), (3, 100, 260), (2, 256, 256),
+                                   (8, 2048, 2560),
+                                   # S below one stage (32 f32 / 64 bf16 steps) and
+                                   # not a multiple of it; W a partial 160-channel tile.
+                                   (2, 5, 8), (3, 33, 72), (1, 65, 136), (4, 1000, 200)])
+def test_rglru_scan_kernel_matches_plain_bitwise(cuda, b, s, w, dtype):
+    a, bb, h0 = _scan_inputs(b, s, w, dtype, b + s + w)
     reset_launch_counts()
     out = rglru_scan(a.to(cuda), bb.to(cuda), h0.to(cuda))
     torch.cuda.synchronize()
     assert launch_counts()["rglru_scan"] == 1 and out.dtype == dtype
     assert torch.equal(out.cpu(), rglru_scan_ref(a, bb, h0))
+
+
+@pytest.mark.parametrize("dtype,w,path", [
+    (torch.float32, 4, "tma"), (torch.float32, 6, "direct"), (torch.float32, 68, "tma"),
+    (torch.float32, 70, "direct"), (torch.bfloat16, 8, "tma"), (torch.bfloat16, 12, "direct"),
+    (torch.bfloat16, 72, "tma"), (torch.bfloat16, 76, "direct")], ids=str)
+@pytest.mark.parametrize("s", [3, 100])
+def test_rglru_scan_each_body_either_side_of_the_tma_condition(cuda, dtype, w, path, s):
+    """Rows of a whole number of 16 bytes take the tma body, others the
+    direct one; each launched through ``ops.launch`` by name as well."""
+    from repro_torch.kernels.rglru_scan import ops
+
+    assert ops.kernel_path(dtype, w, True) == path
+    a, bb, h0 = _scan_inputs(3, s, w, dtype, w + s)
+    ref = rglru_scan_ref(a, bb, h0)
+    ag, bg, hg = a.to(cuda), bb.to(cuda), h0.to(cuda)
+    assert torch.equal(rglru_scan(ag, bg, hg).cpu(), ref)
+    out = torch.empty_like(ag)
+    ops.launch(ag, bg, hg, out, "direct")
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_rglru_scan_takes_misaligned_inputs_on_the_direct_body(cuda):
+    """A contiguous view 4 bytes into its storage: TMA cannot take it."""
+    from repro_torch.kernels.rglru_scan import ops
+
+    a, bb, h0 = _scan_inputs(2, 40, 64, torch.float32, 3)
+    ag = torch.empty(a.numel() + 1, device=cuda)[1:].view(a.shape).copy_(a)
+    assert ag.data_ptr() % 16 and ops.kernel_path(ag.dtype, 64, False) == "direct"
+    assert torch.equal(rglru_scan(ag, bb.to(cuda), h0.to(cuda)).cpu(), rglru_scan_ref(a, bb, h0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rglru_scan_planted_stage_fault_shows(cuda, dtype):
+    """A ring stage consumed twice: the outputs from that stage on differ."""
+    from repro_torch.kernels.rglru_scan import ops
+
+    a, bb, h0 = _scan_inputs(2, 300, 128, dtype, 9)
+    ag, bg, hg = a.to(cuda), bb.to(cuda), h0.to(cuda)
+    out = torch.empty_like(ag)
+    ops.launch(ag, bg, hg, out, "tma", fault_stage=2)
+    steps = ops.plan(2, 300, 128, dtype)[1]
+    ref = rglru_scan_ref(a, bb, h0)
+    assert torch.equal(out[:, : 2 * steps].cpu(), ref[:, : 2 * steps])
+    assert not torch.equal(out[:, 2 * steps: 3 * steps].cpu(), ref[:, 2 * steps: 3 * steps])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])

@@ -8,7 +8,9 @@ Both kernels compute integers, so no tolerance applies anywhere here:
   (``keygroup_partition(..., force_pallas=True)``) and the engine's numpy
   routing hash ``Topology.keygroups_of``, over the key dtypes and shapes of
   ``tests/test_kernels.py`` (negative int64 keys, sign-extended int32 keys,
-  ``base`` offsets, histogram wiring into the SPL window);
+  ``base`` offsets, skewed and all-equal keys, histogram wiring into the
+  SPL window); and the CUDA kernel's plain-Python parts: the magic
+  constants of its division, its launch plan and its ``kernel_path``;
 * ``bucket_argsort`` — the port's plain version against the reference's
   ``bucket_argsort_pallas(interpret=True)`` and ``np.argsort(kind=
   "stable")``, over the shapes of ``tests/test_radix_sort.py`` plus the
@@ -48,6 +50,14 @@ from repro_torch.kernels import (
     rglru_scan,
 )
 from repro_torch.kernels.keygroup_partition import fold_keys64
+from repro_torch.kernels.keygroup_partition.ops import CLUSTER as PARTITION_CLUSTER
+from repro_torch.kernels.keygroup_partition.ops import (
+    SMEM_MAX_BUCKETS as PARTITION_SMEM_MAX_BUCKETS,
+)
+from repro_torch.kernels.keygroup_partition.ops import head_keys as partition_head_keys
+from repro_torch.kernels.keygroup_partition.ops import kernel_path as partition_kernel_path
+from repro_torch.kernels.keygroup_partition.ops import magic as partition_magic
+from repro_torch.kernels.keygroup_partition.ops import plan as partition_plan
 from repro_torch.kernels.keygroup_partition.ref import keygroup_partition_ref
 from repro_torch.kernels.radix_sort.ops import TILE as RADIX_TILE
 from repro_torch.kernels.radix_sort.ops import plan as radix_plan
@@ -124,6 +134,96 @@ def test_partition_ref_signature_matches_reference_ref():
     r_kg, r_hist = ref_keygroup_partition_ref(jnp.asarray(keys32), 97)
     np.testing.assert_array_equal(kg.numpy(), np.asarray(r_kg))
     np.testing.assert_array_equal(hist.numpy(), np.asarray(r_hist))
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.int32], ids=["i8", "i4"])
+@pytest.mark.parametrize("kind", ["zipf", "all_equal"])
+def test_partition_skewed_keys_match_pallas_interpret(kind, dtype):
+    """Zipf-skewed keys (a few key groups take most tuples, as the engine's
+    airline plane ids do) and all-equal keys (one key group takes all)."""
+    rng = np.random.default_rng(17)
+    n = 3000
+    if kind == "zipf":
+        keys = (np.minimum(rng.zipf(1.2, size=n), 4000) * 104_729 - 77).astype(dtype)
+    else:
+        keys = np.full(n, -987_654_321, dtype=dtype)
+    ids, hist = keygroup_partition(torch.from_numpy(keys), 1000, base=1000)
+    p_ids, p_hist = ref_keygroup_partition(keys, 1000, base=1000, force_pallas=True)
+    np.testing.assert_array_equal(ids.numpy(), p_ids)
+    np.testing.assert_array_equal(hist.numpy(), p_hist)
+    assert hist.max() >= (n if kind == "all_equal" else n // 10)
+
+
+def _edge_dividends(d: int) -> np.ndarray:
+    """0, 1, 2^31 - 2, 2^31 - 1, and multiples of d minus 1, exact, plus 1
+    (sampled to about 3,000 when d is small), all below 2^31."""
+    k = np.arange(0, 2**31 // d + 1, max(1, (2**31 // d) // 1000), dtype=np.uint64) * np.uint64(d)
+    x = np.concatenate([np.array([0, 1, 2**31 - 2, 2**31 - 1], dtype=np.uint64), k,
+                        k - np.uint64(1), k + np.uint64(1)])
+    return x[x < 2**31]
+
+
+def _magic_mod(x: np.ndarray, d: int) -> np.ndarray:
+    m, shift = partition_magic(d)
+    assert 0 < m < 2**32 and 31 <= shift <= 62
+    return x - ((x * np.uint64(m)) >> np.uint64(shift)) * np.uint64(d)
+
+
+def test_partition_magic_division_is_exact_for_every_small_nkg():
+    for d in range(1, 4097):
+        x = _edge_dividends(d)
+        np.testing.assert_array_equal(_magic_mod(x, d), x % np.uint64(d), err_msg=f"nkg {d}")
+
+
+@pytest.mark.parametrize("d", [4097, 51_199, 51_200, 51_201, 60_000, 65_537, 1_000_003,
+                               2**30 - 1, 2**30, 2**30 + 1, 2**31 - 2, 2**31 - 1])
+def test_partition_magic_division_is_exact_for_large_nkg(d):
+    rng = np.random.default_rng(d)
+    x = np.concatenate([_edge_dividends(d), rng.integers(0, 2**31, 100_000).astype(np.uint64)])
+    np.testing.assert_array_equal(_magic_mod(x, d), x % np.uint64(d))
+
+
+def test_partition_magic_rejects_out_of_range_nkg():
+    for d in (0, -1, 2**31):
+        with pytest.raises(ValueError):
+            partition_magic(d)
+
+
+@pytest.mark.parametrize("n,key_bytes,nkg,blocks", [
+    (1 << 20, 8, 1000, 512),  # the engine's hops: one trip of 4 vectors a thread
+    (1 << 20, 4, 1000, 256),  # int32 keys: 4 keys a vector
+    (1, 8, 1, 8), (0, 4, 3, 8),  # at least one cluster
+    (5 << 20, 8, 1000, 528),  # at most one wave: 4 blocks x 132 SMs
+    (1 << 20, 8, 51_200, 128),  # one 200 KiB histogram a SM, whole clusters
+    (1 << 20, 8, 51_201, 512), (100_000, 8, 60_000, 49),  # global body, no clusters
+    (10 << 20, 4, 60_000, 528),
+])
+def test_partition_plan_at_the_main_shape_and_the_edges(n, key_bytes, nkg, blocks):
+    got = partition_plan(n, key_bytes, nkg, 132)
+    assert got == blocks
+    if nkg <= PARTITION_SMEM_MAX_BUCKETS:
+        assert got % PARTITION_CLUSTER == 0
+
+
+@pytest.mark.parametrize("nkg,key_bytes,n,address,path", [
+    (1000, 8, 1 << 20, 0x7F0000000000, "shared/vector"),  # the engine's hops
+    (1000, 4, 1 << 20, 0x7F0000000200, "shared/vector"),
+    (1000, 8, 1 << 20, 0x7F0000000008, "shared/scalar edges"),  # a slice: a head of 1
+    (1000, 4, 4097, 0x7F0000000000, "shared/scalar edges"),  # a tail of 1
+    (1000, 4, 4096, 0x7F000000000C, "shared/scalar edges"),  # a head of 1, a tail of 3
+    (1000, 8, 2, 0x7F0000000000, "shared/vector"), (1000, 8, 1, 0x7F0000000000,
+                                                    "shared/scalar edges"),
+    (51_200, 8, 64, 0, "shared/vector"), (51_201, 8, 64, 0, "global/vector"),
+    (60_000, 4, 3, 4, "global/scalar edges"),
+])
+def test_partition_kernel_path_names_the_body(nkg, key_bytes, n, address, path):
+    assert partition_kernel_path(nkg, key_bytes, n, address) == path
+
+
+def test_partition_head_keys_reach_the_first_16_byte_boundary():
+    assert [partition_head_keys(0x1000 + off, 4, 100) for off in (0, 4, 8, 12)] == [0, 3, 2, 1]
+    assert [partition_head_keys(0x1000 + off, 8, 100) for off in (0, 8)] == [0, 1]
+    assert partition_head_keys(0x1004, 4, 2) == 2  # never past n
 
 
 def test_partition_empty_and_bad_inputs():

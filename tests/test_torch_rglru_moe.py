@@ -35,6 +35,7 @@ from repro.models.transformer import block_forward as ref_block_forward
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ATTN_MOE
 from repro_torch.kernels import launch_counts, moe_gemm, reset_launch_counts
+from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.models import moe, rglru
 from repro_torch.models.transformer import block_forward
 from repro_torch.models.weights import to_torch
@@ -76,6 +77,39 @@ def test_rglru_scan_with_h0_matches_reference_associative_scan():
     _close(got, ref_rglru.rglru_scan(*map(jnp.asarray, (a, b, h0))))
     got0 = rglru.rglru_scan(torch.from_numpy(a), torch.from_numpy(b))
     _close(got0, ref_rglru.rglru_scan(jnp.asarray(a), jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("dtype,w,aligned,path", [
+    (torch.float32, 2560, True, "tma"),  # RecurrentGemma-2B's lru_width
+    (torch.bfloat16, 2560, True, "tma"),
+    (torch.float32, 4, True, "tma"), (torch.float32, 6, True, "direct"),  # 16 vs 24 bytes
+    (torch.bfloat16, 8, True, "tma"), (torch.bfloat16, 12, True, "direct"),
+    (torch.float32, 2560, False, "direct"),  # a misaligned view
+    (torch.float32, 1, True, "direct"), (torch.bfloat16, 4, True, "direct"),
+])
+def test_rglru_scan_kernel_path_names_the_body(dtype, w, aligned, path):
+    assert scan_ops.kernel_path(dtype, w, aligned) == path
+
+
+@pytest.mark.parametrize("b,s,w,dtype,planned", [
+    (8, 2048, 2560, torch.float32, (128, 32, 64)),  # the prefill: 128 blocks, one wave
+    (8, 2048, 2560, torch.bfloat16, (128, 64, 32)),
+    (2, 5, 8, torch.float32, (2, 32, 1)),  # S below one stage
+    (3, 100, 200, torch.float32, (6, 32, 4)),  # S not a multiple of 32; a partial tile
+    (1, 64, 64, torch.bfloat16, (1, 64, 1)),
+    (1, 65, 64, torch.bfloat16, (1, 64, 2)),
+])
+def test_rglru_scan_plan_at_the_main_shape_and_the_edges(b, s, w, dtype, planned):
+    blocks, steps, stages = scan_ops.plan(b, s, w, dtype)
+    assert (blocks, steps, stages) == planned
+    # At the prefill the grid is one wave of at most one block per H100 SM.
+    assert scan_ops.plan(8, 2048, 2560, dtype)[0] <= 132
+    # A stage holds STEP_BYTES of each channel's a; the stages cover S and no more.
+    assert steps * dtype.itemsize == scan_ops.STEP_BYTES
+    assert (stages - 1) * steps < s <= stages * steps
+    # The ring fits a block's shared memory on an H100, whole warps consume it.
+    assert scan_ops.STAGES * scan_ops.TILE * 2 * scan_ops.STEP_BYTES + 128 <= 232_448
+    assert scan_ops.TILE % 32 == 0
 
 
 @pytest.mark.parametrize("s", [1, 2, 20])
