@@ -41,13 +41,28 @@ error or mismatch:
    airline batch per tick for 20 ticks, every routed hop through both
    routing kernels; the first 3 ticks are held bit-identical (sink counts
    and every key group's state) to the port's own ``device="cpu"`` engine
-   on the same batches, tuple counts are conserved, and tuples/s is printed;
+   on the same batches, tuple counts are conserved, and tuples/s and the
+   device's busy share of 3 more steady ticks (torch.profiler) are printed;
+3j. the same under ``ExecutionConfig.jit()``: the compiled tier keeps
+   sumdelay's and routedelay's keyed running sums in device columns
+   (``repro_torch.engine.jitexec``), every routed hop still through both
+   routing kernels; the first 3 ticks are held against the CPU ``.jit()``
+   engine and every tick's sink and processed counts, the arrival histograms
+   and the final states against phase 3's ``.typed()`` engine (integers,
+   keys and insertion order exactly; floats at the tier's rtol 1e-9);
+   prints tuples/s beside phase 3's, the jit counters with the first calls'
+   seconds apart, host↔device copies and bytes, the busy share, and
+   ``keyed_running_sum``'s device and host ms per call at the steady
+   segment size (3 rounds);
 4. the ALBIC controller (``Controller.period()``) on Real Job 3 in the
    real-jobs benchmark's setup (anti-collocated start, ``max_migrations=10``,
-   ``ser_cost=0.6``, ``service_rate=3000``) for 6 periods: each period's
-   statistics snapshot is held against the CPU engine's, and the plan solved
+   ``ser_cost=0.6``, ``service_rate=3000``) for 6 periods, under ``.typed()``
+   and again under ``.jit()``: each period's statistics snapshot is held
+   against the CPU engine's in the same configuration, and the plan solved
    once on the card engine's snapshot is applied to both, whose routing
-   tables and states must then agree;
+   tables and states must then agree (under ``.jit()`` floats at rtol
+   1e-9, and every migrated key group of a table operator must have left
+   the device columns);
 5. the LM path at full width: GLM-4-9B (40 layers, d_model 4096, vocab
    151,552; ``max_seq_len`` cut to 4,096, the context) with random bf16
    weights from a seeded generator on the card; 8 prompts of 2,048 tokens
@@ -82,7 +97,7 @@ error or mismatch:
    per slot); the weights of the earlier models are freed first;
 
 then one JSON line listing the kernels with their launches on the paths
-that run them (phases 3-4 for routing, 5-8 for the LM kernels), times,
+that run them (phases 3, 3j and 4 for routing, 5-8 for the LM kernels), times,
 bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
 and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
 without CUDA, and outside a checkout that holds ``src/repro_torch``.
@@ -100,6 +115,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import pickle
 import subprocess
 import sys
@@ -162,6 +178,10 @@ INT32_OPS_PER_S = 67e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 FLOAT_RTOL = 1e-12
+# The compiled tier's documented float tolerance (tests/conformance.py,
+# JIT_FLOAT_RTOL/ATOL): running sums associate differently from the
+# per-run oracle's left fold; everything else is compared exactly.
+JIT_RTOL = 1e-9
 
 
 class SmokeFailure(Exception):
@@ -215,13 +235,15 @@ def device_kernels(prof) -> list[tuple[float, str, int]]:
     return sorted(rows, reverse=True)
 
 
-def device_ms(fn, reps: int, attempts: int = 3) -> float:
+def device_ms(fn, reps: int, attempts: int = 3, lost: float = 0.0) -> float:
     """Device milliseconds per call of ``fn`` from torch.profiler over
     ``reps`` calls: for each kernel (or copy) the calls ran, its mean
     duration times its launches per call.  The host's time between launches
     is left out.  A trace can lose an event or two (one of 60 launches at
     times), so launches per call are counts over ``reps`` rounded; a trace
-    whose counts are far from whole multiples of ``reps`` is taken again."""
+    whose counts are far from whole multiples of ``reps`` is taken again.
+    ``lost`` widens "far" to that share of a kernel's launches, for a call
+    of hundreds of launches, where a trace loses a few in every hundred."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -235,7 +257,7 @@ def device_ms(fn, reps: int, attempts: int = 3) -> float:
             torch.cuda.synchronize()
         rows = device_kernels(prof)
         per_call = [max(1, round(n / reps)) for _, _, n in rows]
-        if rows and all(abs(n - k * reps) <= max(1, reps // 20)
+        if rows and all(abs(n - k * reps) <= max(1, reps // 20, lost * k * reps)
                         for (_, _, n), k in zip(rows, per_call)):
             return sum(us / n * k for (us, _, n), k in zip(rows, per_call)) / 1e3
     raise SmokeFailure(f"torch.profiler recorded no whole trace of {reps} calls in {attempts} "
@@ -245,7 +267,7 @@ def device_ms(fn, reps: int, attempts: int = 3) -> float:
 ROUNDS = 3  # phase 2's decode-shape timings: rounds within the call, for the spread
 
 
-def timed_rounds(fns: dict, rounds: int = ROUNDS) -> dict[str, dict]:
+def timed_rounds(fns: dict, rounds: int = ROUNDS, lost: float = 0.0) -> dict[str, dict]:
     """Device ms per call (``device_ms``) and host ms per call
     (``cuda_ms``) of each ``name -> (fn, reps)``, in ``rounds`` rounds that
     take the callables in turn; per name the median and the [min, max] of
@@ -253,7 +275,7 @@ def timed_rounds(fns: dict, rounds: int = ROUNDS) -> dict[str, dict]:
     runs = {name: ([], []) for name in fns}
     for _ in range(rounds):
         for name, (fn, reps) in fns.items():
-            runs[name][0].append(device_ms(fn, reps))
+            runs[name][0].append(device_ms(fn, reps, lost=lost))
             runs[name][1].append(cuda_ms(fn, reps))
     return {name: dict(device_ms=float(np.median(dev)), device_spread=[min(dev), max(dev)],
                        host_ms=float(np.median(host)), host_spread=[min(host), max(host)])
@@ -1074,19 +1096,144 @@ def state_bytes(eng) -> list[bytes]:
     return [pickle.dumps(s, protocol=pickle.HIGHEST_PROTOCOL) for _, s in eng.store.items()]
 
 
-def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks: int):
-    """Real Job 3 at full size on the card; the first ticks against the CPU."""
+def synced_states(eng) -> list[dict]:
+    """Every key group's state dict, the compiled tier's device columns
+    materialized into the store first (``sync_store``)."""
+    if getattr(eng, "_jit", None) is not None:
+        eng._jit.sync_store()
+    return [s for _, s in eng.store.items()]
+
+
+def _close(a, b) -> bool:
+    """Structure, keys, insertion order and integers equal; floats within
+    JIT_RTOL (tests/conformance.py's approx_equal)."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, float):
+        return a == b or math.isclose(a, b, rel_tol=JIT_RTOL, abs_tol=JIT_RTOL)
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_close(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_close(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def states_close(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(_close(x, y) for x, y in zip(a, b))
+
+
+def profile_ticks(eng, batches) -> dict:
+    """The device's busy share of steady ticks (push + tick each): the
+    ticks run once plain, timed on the host clock, and once more under
+    torch.profiler, whose device events (every kernel, copy and memset)
+    give the busy time; busy over the plain wall time is the share (the
+    profiled wall time, inflated by the profiler, is given apart)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def ticks():
+        for k, v, ts in batches:
+            eng.push_source("airline", k, v, ts)
+            eng.tick()
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ticks()
+        wall_prof = time.perf_counter() - t0
+    rows = device_kernels(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    return dict(ticks=len(batches), wall_s=wall, busy_s=busy,
+                busy_share=busy / wall if rows else None, profiled_wall_s=wall_prof,
+                top=[(k, round(us / 1e3, 3), n) for us, k, n in rows[:8]])
+
+
+def host_profile(eng, batches, top: int = 12) -> list:
+    """Where the host's time goes in steady ticks (push + tick each, then a
+    synchronization): cProfile's cumulative seconds of the port's own
+    functions, largest first, as (function, seconds, calls).  cProfile
+    charges every Python call, so the Python-heavy parts read high."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for k, v, ts in batches:
+        eng.push_source("airline", k, v, ts)
+        eng.tick()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = [(f"{Path(f).stem}.{fn}", ct, nc)
+            for (f, _, fn), (_, nc, _, ct, _) in pstats.Stats(prof).stats.items()
+            if "repro_torch" in f]
+    return [(name, round(ct, 4), nc) for name, ct, nc in sorted(rows, key=lambda r: -r[1])[:top]]
+
+
+def time_keyed_running_sum(eng, batch) -> dict:
+    """``keyed_running_sum`` (the compiled tier's keyed running sum, torch
+    ops) at the steady segment size: sumdelay's table as the run left it
+    (grown as the runtime would for one more call) and one batch's (plane,
+    year) codes, device and host ms per call in ROUNDS rounds, beside the
+    bytes bound of its inputs and outputs."""
+    import torch
+
+    from repro_torch.engine import jitexec as jx
+
+    op = eng.topology._resolve("sumdelay")
+    ost = eng._jit._by_op[op]
+    k, v, _ = batch
+    n = len(k)
+    dev = eng.device
+    table, cnt = ost.cols["sums"], ost.cnt_host["sums"]
+    if cnt + n > table.codes.shape[0]:
+        table = jx.grown_table(table, jx._bucket(cnt + n, jx._MIN_TABLE_CAP))
+    cap = table.codes.shape[0]
+    planes = v["plane"].astype(np.int64)
+    local = eng.topology.keygroups_of(op, planes, None) - ost.base
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        (planes << 32) | v["year"].astype(np.int64), local,
+        v["dep_delay"] + v["arr_delay"], np.ones(n, dtype=bool))]
+    # ≈150 launches a call: the trace loses a few in every hundred.
+    t = timed_rounds({"krs": (lambda i: jx.keyed_running_sum(table, *args), 10)},
+                     lost=0.05)["krs"]
+    # Inputs (codes, key groups, addends: 8 B; valid: 1 B) and the running
+    # sums (8 B) per tuple; the table's five leaves (8+8+8+4+4 B a slot)
+    # read once and written once.
+    nbytes = n * (8 + 8 + 8 + 1 + 8) + 2 * cap * 32
+    b_ms, _ = bound_ms(nbytes, 0)
+    t.update(tuples=n, table_cap=cap, table_cnt=cnt, bound_ms=b_ms)
+    log(f"[engine/jit] keyed_running_sum at {n} tuples against a {cnt}-entry table "
+        f"(capacity {cap}): {fmt_rounds(t)}; bytes bound {b_ms:.4f} ms")
+    return t
+
+
+def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks: int,
+               config=None, typed=None):
+    """Real Job 3 at full size on the card; the first ticks against the
+    port's CPU engine in the same configuration.  With ``typed`` (the
+    result of a ``.typed()`` run on the same batches) every tick's counts,
+    the final arrival histogram and states are held against it too."""
     import torch
 
     from repro_torch.data import real_job_3
-    from repro_torch.engine import Engine
+    from repro_torch.engine import Engine, ExecutionConfig
 
+    config = config or ExecutionConfig.typed()
+    jit = config.use_fn_jit
+    tag = "engine/jit" if jit else "engine"
     batches = airline_batches(ticks, batch, SEED)
 
     def make(device):
         eng = Engine(
             real_job_3(keygroups_per_op=kgs),
             nodes,
+            config=config,
             service_rate=1e12,
             seed=SEED,
             collect_sinks=False,
@@ -1101,6 +1248,7 @@ def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks
     gpu, cpu = make(dev), make("cpu")
     admitted = 0
     t_gpu = 0.0
+    counts = []
     for t, (k, v, ts) in enumerate(batches):
         t0 = time.perf_counter()
         n = gpu.push_source("airline", k, v, ts)
@@ -1109,6 +1257,11 @@ def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks
         t_gpu += time.perf_counter() - t0
         check(n == batch, f"tick {t}: admitted {n} of {batch} tuples")
         admitted += n
+        counts.append((gpu.metrics.sink_tuples, gpu.metrics.processed_tuples))
+        if typed is not None:
+            check(counts[t] == typed["counts"][t],
+                  f"tick {t}: sink/processed counts {counts[t]} differ from .typed()'s "
+                  f"{typed['counts'][t]}")
         if t < check_ticks:
             cpu.push_source("airline", k, v, ts)
             cpu.tick()
@@ -1117,15 +1270,21 @@ def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks
                 and gpu.metrics.processed_tuples == cpu.metrics.processed_tuples,
                 f"tick {t}: sink/processed counts differ from the CPU engine",
             )
-            check(
-                state_bytes(gpu) == state_bytes(cpu),
-                f"tick {t}: key-group state differs from the CPU engine",
-            )
+            if jit:
+                check(states_close(synced_states(gpu), synced_states(cpu)),
+                      f"tick {t}: key-group state differs from the CPU engine's beyond "
+                      f"rtol {JIT_RTOL}")
+            else:
+                check(
+                    state_bytes(gpu) == state_bytes(cpu),
+                    f"tick {t}: key-group state differs from the CPU engine",
+                )
             check(
                 np.array_equal(gpu.window.kg_arrivals, cpu.window.kg_arrivals),
                 f"tick {t}: arrival histograms differ from the CPU engine",
             )
-            log(f"[engine] tick {t}: card == cpu (sink_tuples={gpu.metrics.sink_tuples})")
+            log(f"[{tag}] tick {t}: card == cpu (sink_tuples={gpu.metrics.sink_tuples})")
+    del cpu
     t0 = time.perf_counter()
     for _ in range(DRAIN_TICKS):
         gpu.tick()
@@ -1139,10 +1298,18 @@ def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks
     check(m.processed_tuples == 4 * admitted, "processed tuples not conserved")
     check(m.emitted_tuples == 4 * admitted, "emitted tuples not conserved")
     check(m.sink_tuples == 2 * admitted, "sink tuples not conserved")
+    arrivals = gpu.window.kg_arrivals.copy()
     snap = gpu.end_period()
     check(np.isfinite(snap.kg_load).all(), "non-finite key-group load")
     check(round(snap.kg_tuple_rate.sum() * (ticks + DRAIN_TICKS)) == 4 * admitted,
           "arrival statistics do not count every routed tuple")
+    states = synced_states(gpu)
+    if typed is not None:
+        check(np.array_equal(arrivals, typed["arrivals"]),
+              "arrival histograms differ from .typed()'s")
+        check(states_close(states, typed["states"]),
+              f"key-group state differs from .typed()'s beyond rtol {JIT_RTOL}")
+        log(f"[{tag}] counts of every tick, arrival histograms and states == .typed()'s")
     ops = len(gpu.topology.operators)
     for field in ("partition_kernel_batches", "sort_kernel_batches"):
         per_op = getattr(m, field)
@@ -1154,16 +1321,7 @@ def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks
     # Throughput counts every admitted tuple fully processed: the feeding
     # ticks plus the drain ticks that finish the last batches.
     tps = admitted / (t_gpu + t_drain)
-    log(
-        f"[engine] job3 kgs/op={kgs} nodes={nodes} batch={batch}: {admitted} "
-        f"tuples in {ticks} ticks ({t_gpu:.3f} s) + {DRAIN_TICKS} drain ticks "
-        f"({t_drain:.3f} s) = {tps:.0f} tuples/s ({admitted / t_gpu:.0f} over "
-        f"the feeding ticks alone); device round trips "
-        f"{m.device_route_seconds:.3f} s; routed_batches={m.routed_batches} "
-        f"host_device_copies={m.host_device_copies} "
-        f"host_device_bytes={m.host_device_bytes}"
-    )
-    return {
+    res = {
         "tuples_per_s": tps,
         "tick_seconds": t_gpu,
         "drain_seconds": t_drain,
@@ -1172,15 +1330,61 @@ def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks
         "host_device_copies": m.host_device_copies,
         "host_device_bytes": m.host_device_bytes,
     }
+    log(
+        f"[{tag}] job3 kgs/op={kgs} nodes={nodes} batch={batch}: {admitted} "
+        f"tuples in {ticks} ticks ({t_gpu:.3f} s) + {DRAIN_TICKS} drain ticks "
+        f"({t_drain:.3f} s) = {tps:.0f} tuples/s ({admitted / t_gpu:.0f} over "
+        f"the feeding ticks alone); device round trips "
+        f"{m.device_route_seconds:.3f} s; routed_batches={m.routed_batches} "
+        f"host_device_copies={m.host_device_copies} "
+        f"host_device_bytes={m.host_device_bytes}"
+    )
+    if jit:
+        comp = gpu._jit.compile_seconds
+        check(m.jit_calls > 0 and m.jit_host_syncs == m.jit_calls,
+              f"jit_calls {m.jit_calls}, jit_host_syncs {m.jit_host_syncs}")
+        res.update(jit_calls=m.jit_calls, jit_compiles=m.jit_compiles,
+                   jit_host_syncs=m.jit_host_syncs, jit_tuples=m.jit_tuples,
+                   compile_seconds=comp,
+                   steady_tuples_per_s=admitted / (t_gpu + t_drain - comp))
+        log(f"[{tag}] jit_calls={m.jit_calls} jit_compiles={m.jit_compiles} "
+            f"jit_host_syncs={m.jit_host_syncs} jit_tuples={m.jit_tuples}; first calls per "
+            f"bucket (compile_seconds) {comp:.3f} s; without them "
+            f"{res['steady_tuples_per_s']:.0f} tuples/s")
+        res["keyed_running_sum"] = time_keyed_running_sum(gpu, batches[-1])
+    else:
+        # Kept for the .jit() run on the same batches (copied: the
+        # profiled ticks below go on mutating the store's dicts).
+        res.update(counts=counts, arrivals=arrivals,
+                   states=pickle.loads(pickle.dumps(states, protocol=pickle.HIGHEST_PROTOCOL)))
+    prof = profile_ticks(gpu, batches[:3])
+    res["profile"] = prof
+    res["host_profile"] = host_profile(gpu, batches[3:5])
+    log(f"[{tag}] host cProfile of 2 steady ticks, cumulative s (calls): {res['host_profile']}")
+    share = prof["busy_share"]
+    log(f"[{tag}] {prof['ticks']} steady ticks: wall {prof['wall_s']:.3f} s, device busy "
+        f"{prof['busy_s'] * 1e3:.3f} ms ("
+        + ("not measured" if share is None else f"{100 * share:.3f} %")
+        + f"; profiled wall {prof['profiled_wall_s']:.3f} s); top device events (ms, count): "
+        f"{prof['top']}")
+    return res
 
 
 # --------------------------------------------------------------------- phase 4
-def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, periods: int):
-    """ALBIC through Controller.period() on the card; the CPU engine mirrors."""
+def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, periods: int,
+                   config=None):
+    """ALBIC through Controller.period() on the card; the CPU engine in the
+    same configuration mirrors.  Under ``.jit()`` each migration moves a
+    key group's table rows out of the device columns (``ensure_dict``) and,
+    at its next call, back in (``invalidate``, then the push)."""
     from repro_torch.core import AdaptationFramework, AlbicParams
     from repro_torch.core.migration import execute_plan
     from repro_torch.data import StreamSpec, airline_stream, real_job_3
-    from repro_torch.engine import Controller, ControllerConfig, Engine
+    from repro_torch.engine import Controller, ControllerConfig, Engine, ExecutionConfig
+
+    config = config or ExecutionConfig.typed()
+    jit = config.use_fn_jit
+    tag = "controller/jit" if jit else "controller"
 
     class SnapshotEngine(Engine):
         """Keeps every end_period() snapshot for the comparison."""
@@ -1212,6 +1416,7 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
         return cls(
             topo,
             nodes,
+            config=config,
             initial_alloc=alloc,
             ser_cost=0.6,
             service_rate=3000.0,
@@ -1237,6 +1442,7 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
     fw.results = []
     ctl = Controller(gpu, fw, ControllerConfig(ticks_per_period=ticks), feeder=feeder)
     total_migrations = 0
+    moved_tables = 0
     for p in range(periods):
         n_res = len(fw.results)
         fed.clear()
@@ -1264,21 +1470,41 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
             check(not res.scaling.add_nodes and not res.terminated,
                   "unexpected scaling in the controller phase")
             execute_plan(res.migration_plan, cpu)
+            if jit and gpu._jit is not None:
+                # Each moved key group of a table operator left the device
+                # columns: its installed dict is authoritative until its
+                # next call pushes it back.
+                for mv in res.migration_plan.moves:
+                    ost = gpu._jit._by_op.get(int(gpu._kg_op[mv.keygroup]))
+                    if ost is not None and ost.fields:
+                        check(not ost.col_auth[mv.keygroup - ost.base],
+                              f"period {p}: key group {mv.keygroup} still column-"
+                              "authoritative after its migration")
+                        moved_tables += 1
         check(
             np.array_equal(gpu.router.table, cpu.router.table),
             f"period {p}: routing tables differ after the plan",
         )
-        check(state_bytes(gpu) == state_bytes(cpu), f"period {p}: states differ")
+        if jit:
+            check(states_close(synced_states(gpu), synced_states(cpu)),
+                  f"period {p}: states differ beyond rtol {JIT_RTOL}")
+        else:
+            check(state_bytes(gpu) == state_bytes(cpu), f"period {p}: states differ")
         total_migrations += m.num_migrations
         log(
-            f"[controller] period {p}: load_distance={m.load_distance:.6f} "
+            f"[{tag}] period {p}: load_distance={m.load_distance:.6f} "
             f"collocation={m.collocation_factor:.6f} load_index={m.load_index:.6f} "
             f"migrations={m.num_migrations} migration_cost={m.migration_cost:.6f} "
             f"solver_seconds={m.solver_seconds:.3f} "
             f"migration_pause_s={m.migration_pause_s:.6f} latency={m.latency}"
         )
     check(total_migrations >= 1, "the controller ran no migration")
-    return {"migrations": total_migrations}
+    res = {"migrations": total_migrations}
+    if jit:
+        check(moved_tables >= 1, "no migration moved a table operator's key group")
+        check(gpu.metrics.jit_calls > 0, "the .jit() controller engine made no jit call")
+        res.update(moved_table_keygroups=moved_tables, jit_calls=gpu.metrics.jit_calls)
+    return res
 
 
 # ------------------------------------------------------------------ phases 5-8
@@ -1991,15 +2217,22 @@ def main() -> int:
         routing = ("keygroup_partition", "radix_sort")
 
         def engine_paths():
-            engine = run_engine(
-                dev, batch=BATCH, kgs=KGS, nodes=NODES, ticks=TICKS,
-                check_ticks=CHECK_TICKS,
-            )
-            controller = run_controller(
-                dev, kgs=CTL_KGS, nodes=CTL_NODES, rate=CTL_RATE, ticks=CTL_TICKS,
-                periods=CTL_PERIODS,
-            )
-            return engine, controller
+            from repro_torch.engine import ExecutionConfig
+
+            size = dict(batch=BATCH, kgs=KGS, nodes=NODES, ticks=TICKS, check_ticks=CHECK_TICKS)
+            typed = run_engine(dev, **size)
+            jit = run_engine(dev, **size, config=ExecutionConfig.jit(), typed=typed)
+            for key in ("counts", "arrivals", "states"):
+                del typed[key]
+            log(f"[engine] Real Job 3, {TICKS} x {BATCH} tuples: .typed() "
+                f"{typed['tuples_per_s']:.0f} tuples/s, .jit() {jit['tuples_per_s']:.0f} "
+                f"tuples/s; device busy over 3 steady ticks {typed['profile']['busy_share']} "
+                f"/ {jit['profile']['busy_share']}")
+            ctl = dict(kgs=CTL_KGS, nodes=CTL_NODES, rate=CTL_RATE, ticks=CTL_TICKS,
+                       periods=CTL_PERIODS)
+            controller = run_controller(dev, **ctl)
+            controller["jit"] = run_controller(dev, **ctl, config=ExecutionConfig.jit())
+            return {"typed": typed, "jit": jit}, controller
 
         (engine, controller), _ = drive(routing, engine_paths)
         gc.collect()

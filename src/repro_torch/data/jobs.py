@@ -1,8 +1,7 @@
 """The paper's Real Jobs 2 and 3 (§5.3) as engine topologies.
 
 A copy of the reference package's job definitions (``repro.data.jobs``)
-for the jobs this slice of the port runs; jobs 1 and 4 and the compiled
-tier's ``fn_jit`` bodies come with later slices.
+for the jobs the port runs so far; jobs 1 and 4 come with a later slice.
 
 Job 2  airline → ExtractDelay → SumDelay(airplane, year)  (same key both ops —
        perfect collocation possible)
@@ -14,7 +13,11 @@ Every operator implements both interpreted execution protocols:
 * the per-run ``fn`` — the semantic oracle, executed per (key group, batch);
 * the segment-vectorized ``fn_seg`` — one call per (node, operator) per tick
   covering every key group as whole-segment array operations (segment-
-  reduced running sums).
+  reduced running sums);
+
+and the compiled tier's ``fn_jit`` (torch bodies over device columns, run
+by :mod:`repro_torch.engine.jitexec` under ``ExecutionConfig.jit()``; the
+numpy tiers ignore it).
 
 ``fn_seg`` is required to be bit-identical to running ``fn`` run by run:
 same emitted tuples in the same order, same per-key-group state including
@@ -30,8 +33,17 @@ from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from repro_torch.data import synthetic
-from repro_torch.engine.topology import OperatorSpec, Schema, Topology
+from repro_torch.engine import jitexec as jx
+from repro_torch.engine.topology import (
+    OperatorSpec,
+    Schema,
+    StateField,
+    StateSchema,
+    Topology,
+)
 
 # --------------------------------------------------------------------------
 # Shared operator bodies (state dicts are σ_k — everything must live there).
@@ -351,6 +363,94 @@ def _route_delay_seg(store, kgs, starts, ends, keys, values, ts):
     return (out_keys, out_vals, ts), None
 
 
+# --------------------------------------------------------------------------
+# Compiled tier (OperatorSpec.fn_jit) for the flight-delay operators — pure
+# integer/float column math on torch tensors, executed by
+# repro_torch.engine.jitexec as one call per operator per tick.
+#
+# State lives in declared StateSchema columns: the (airplane, year) and
+# (origin, dest) running sums are keyed-accumulator tables whose int64
+# codes refine the partition key (equal codes ⇒ equal key group), with
+# key_encode/key_decode converting to the oracle dicts' tuple keys.
+# --------------------------------------------------------------------------
+
+
+def _extract_delay_jit(state, kgs, starts, ends, keys, values, ts):
+    out = {
+        "plane": values["plane"],
+        "delay": values["dep_delay"] + values["arr_delay"],
+        "year": values["year"],
+        "origin": values["origin"],
+        "dest": values["dest"],
+    }
+    return state, (values["plane"], out, ts), None
+
+
+def _sum_delay_jit(state, kgs, starts, ends, keys, values, ts):
+    planes, years, delays = values["plane"], values["year"], values["delay"]
+    nb = planes.shape[0]
+    codes = (planes.to(torch.int64) << 32) | years.to(torch.int64)
+    kg = kgs[jx.run_of_tuples(ends, nb)]
+    valid = jx.tuple_valid(starts, ends, nb)
+    table, running = jx.keyed_running_sum(state["sums"], codes, kg, delays, valid)
+    return {"sums": table}, (planes, {"plane": planes, "sum": running}, ts), None
+
+
+def _route_delay_jit(state, kgs, starts, ends, keys, values, ts):
+    na = synthetic.num_airports()
+    origins, dests, delays = values["origin"], values["dest"], values["delay"]
+    nb = origins.shape[0]
+    codes = origins.to(torch.int64) * na + dests
+    kg = kgs[jx.run_of_tuples(ends, nb)]
+    valid = jx.tuple_valid(starts, ends, nb)
+    table, running = jx.keyed_running_sum(state["route_sums"], codes, kg, delays, valid)
+    out = {"origin": origins, "dest": dests, "sum": running, "delay": delays}
+    return {"route_sums": table}, (codes, out, ts), None
+
+
+def _plane_year_encode(key: tuple) -> int:
+    return (int(key[0]) << 32) | int(key[1])
+
+
+def _plane_year_decode(code: int) -> tuple:
+    return (code >> 32, code & 0xFFFFFFFF)
+
+
+def _route_encode(key: tuple) -> int:
+    return int(key[0]) * synthetic.num_airports() + int(key[1])
+
+
+def _route_decode(code: int) -> tuple:
+    na = synthetic.num_airports()
+    return (code // na, code % na)
+
+
+SUM_STATE = StateSchema(
+    (
+        StateField(
+            "sums",
+            "table",
+            dtype=np.float64,
+            py=float,
+            key_encode=_plane_year_encode,
+            key_decode=_plane_year_decode,
+        ),
+    )
+)
+ROUTE_STATE = StateSchema(
+    (
+        StateField(
+            "route_sums",
+            "table",
+            dtype=np.float64,
+            py=float,
+            key_encode=_route_encode,
+            key_decode=_route_decode,
+        ),
+    )
+)
+
+
 
 def real_job_2(*, keygroups_per_op: int = 100) -> Topology:
     t = Topology()
@@ -374,6 +474,7 @@ def real_job_2(*, keygroups_per_op: int = 100) -> Topology:
             _extract_delay,
             num_keygroups=keygroups_per_op,
             fn_seg=_extract_delay_seg,
+            fn_jit=_extract_delay_jit,
             schema=AIRLINE_SCHEMA,
             out_schema=EXTRACT_SCHEMA,
         )
@@ -385,7 +486,11 @@ def real_job_2(*, keygroups_per_op: int = 100) -> Topology:
             num_keygroups=keygroups_per_op,
             is_sink=True,
             fn_seg=_sum_delay_seg,
+            fn_jit=_sum_delay_jit,
+            state_schema=SUM_STATE,
             schema=EXTRACT_SCHEMA,
+            # Sinks have no downstream edge to validate, but the jit tier
+            # packs its output columns through the declared record layout.
             out_schema=SUM_OUT_SCHEMA,
         )
     )
@@ -413,6 +518,8 @@ def real_job_3(*, keygroups_per_op: int = 100) -> Topology:
             key_by_value_col=lambda v: v["origin"] * np.int64(na) + v["dest"],
             is_sink=True,
             fn_seg=_route_delay_seg,
+            fn_jit=_route_delay_jit,
+            state_schema=ROUTE_STATE,
             schema=EXTRACT_SCHEMA,
             out_schema=ROUTE_SCHEMA,
         )

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -25,3 +27,20 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+@contextlib.contextmanager
+def declared_sync(device: torch.device):
+    """A host↔device crossing the engine declares (a read the host needs, a
+    blocking copy): ``torch.cuda``'s sync debug mode is set to 0 for its
+    duration, so that under ``torch.cuda.set_sync_debug_mode("error")``
+    only undeclared synchronizations (a boolean mask, ``.item()``, a
+    ``nonzero`` inside an operator body) raise."""
+    mode = torch.cuda.get_sync_debug_mode() if device.type == "cuda" else 0
+    if mode:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        if mode:
+            torch.cuda.set_sync_debug_mode(mode)

@@ -3,9 +3,11 @@
 The port of ``repro.engine``'s classic tick: :class:`Engine` executes a
 topology over logical nodes with routing on the card (see
 :mod:`repro_torch.engine.executor`), and :class:`Controller` runs
-Algorithm 1 against it once per statistics period.  The compiled tier, the
-fused superstep, checkpoints and the multi-worker runtime are not ported
-yet (see :mod:`repro_torch.engine.config`).
+Algorithm 1 against it once per statistics period.  ``ExecutionConfig.jit()``
+runs the compiled tier's ``fn_jit`` bodies over device state columns
+(:mod:`repro_torch.engine.jitexec`, declared through :class:`StateSchema`).
+The fused superstep, checkpoints and the multi-worker runtime are not
+ported yet (see :mod:`repro_torch.engine.config`).
 """
 
 from repro_torch.engine.config import ExecutionConfig
@@ -14,7 +16,13 @@ from repro_torch.engine.executor import Engine, EngineMetrics
 from repro_torch.engine.router import Router
 from repro_torch.engine.serde import Envelope
 from repro_torch.engine.state import KeyedStore
-from repro_torch.engine.topology import OperatorSpec, Schema, Topology
+from repro_torch.engine.topology import (
+    OperatorSpec,
+    Schema,
+    StateField,
+    StateSchema,
+    Topology,
+)
 from repro_torch.engine.workqueue import DequeWorkQueue, SoAWorkQueue
 
 __all__ = [
@@ -30,5 +38,7 @@ __all__ = [
     "Router",
     "Schema",
     "SoAWorkQueue",
+    "StateField",
+    "StateSchema",
     "Topology",
 ]

@@ -13,13 +13,15 @@ preset                  meaning
 ``.typed()``            ``.seg()`` plus declared schemas honored (columnar
                         structured-array edges) — the default
 ``.split(d)``           ``.typed()`` plus hot-key splitting at degree ``d``
+``.jit()``              ``.typed()`` plus the compiled tier (``fn_jit``
+                        bodies over device state columns, single device)
 ======================  =====================================================
 
 Every preset routes through the card's kernels.  The reference's other
 tiers raise :class:`NotImplementedError` naming the ROADMAP.md item (queue
-1) that brings them: ``.jit()`` (compiled operator tier), ``.superstep()``
-(fused superstep), ``.workers(n)`` (multi-worker runtime) and a
-``checkpoint`` policy (jax-free checkpoints).
+1) that brings them: ``.superstep()`` (fused superstep), ``.workers(n)``
+(multi-worker runtime), a ``checkpoint`` policy (jax-free checkpoints) and
+``.jit(mesh=...)`` (item 11, mesh and dry-run tooling).
 """
 
 from __future__ import annotations
@@ -37,11 +39,14 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionConfig:
-    """How a topology executes: queue layout and operator protocol."""
+    """How a topology executes: queue layout and operator tier."""
 
     queue_impl: str = "soa"
     use_fn_seg: bool = True
     use_schema: bool = True
+    #: The compiled tier: operators declaring ``fn_jit`` run their
+    #: contiguous segments over device state columns.
+    use_fn_jit: bool = False
     #: Hot-key splitting (``split_degree >= 2`` enables
     #: ``Engine.split_keygroup``; 0 = disabled, no reserve slots).
     split_degree: int = 0
@@ -53,6 +58,11 @@ class ExecutionConfig:
     def __post_init__(self) -> None:
         if self.queue_impl not in ("soa", "deque"):
             raise ValueError(f"unknown queue_impl {self.queue_impl!r}")
+        if self.use_fn_jit and (self.queue_impl != "soa" or not self.use_schema):
+            raise ValueError(
+                "use_fn_jit requires queue_impl='soa' and use_schema=True "
+                "(the jit tier executes native columns over SoA segments)"
+            )
         if self.split_degree:
             if self.split_degree < 2:
                 raise ValueError(
@@ -63,6 +73,12 @@ class ExecutionConfig:
                 raise ValueError(
                     "split_reserve must fit at least one split "
                     "(split_degree - 1 replica slots)"
+                )
+            if self.use_fn_jit:
+                raise ValueError(
+                    "hot-key splitting runs on the numpy tiers only (replica "
+                    "key groups live outside the jit tier's per-operator "
+                    "column space)"
                 )
         if self.split_reserve < 0:
             raise ValueError("split_reserve must be >= 0")
@@ -91,8 +107,14 @@ class ExecutionConfig:
         return cls(split_degree=int(degree), split_reserve=int(reserve))
 
     @classmethod
-    def jit(cls, **_kw) -> "ExecutionConfig":
-        raise _not_ported("ExecutionConfig.jit()", "Compiled operator tier")
+    def jit(cls, *, mesh: Any = None, mesh_axis: Optional[str] = None) -> "ExecutionConfig":
+        """``.typed()`` plus the compiled ``fn_jit`` tier, on one device."""
+        if mesh is not None or mesh_axis is not None:
+            raise NotImplementedError(
+                "ExecutionConfig.jit(mesh=...) is not ported to repro_torch yet: "
+                "ROADMAP.md queue 1, item 11 (mesh and dry-run tooling)"
+            )
+        return cls(use_fn_jit=True)
 
     @classmethod
     def superstep(cls, **_kw) -> "ExecutionConfig":
@@ -112,6 +134,8 @@ class ExecutionConfig:
         parts = [self.queue_impl, "seg" if self.use_fn_seg else "fn"]
         if self.use_schema:
             parts.append("schema")
+        if self.use_fn_jit:
+            parts.append("jit")
         if self.split_degree:
             parts.append(f"split{self.split_degree}")
         return "+".join(parts)

@@ -35,10 +35,20 @@ every host↔device copy routing makes (the cost later slices cut), and the
 per-operator ``routed_batches``/``partition_kernel_batches``/
 ``sort_kernel_batches`` show which hops went through the kernels.
 
+The compiled tier (``ExecutionConfig.jit()``: ``OperatorSpec.fn_jit`` +
+a declared ``StateSchema``) moves operator state to the card as well:
+contiguous whole-budget segments of a jit operator defer into one batched
+call per operator per tick over device state columns
+(:mod:`repro_torch.engine.jitexec`; placeholder cells keep output order
+identical to inline execution, and per-run fallbacks force-flush the
+deferred batch first so state updates stay in drain order), exactly as in
+the reference's executor.
+
 ``device="cpu"`` runs the identical path with the kernels' plain PyTorch
 versions on CPU tensors; it is bit-identical to the reference's numpy
-engine, which the conformance tests pin.  The reference's compiled tier,
-fused superstep and periodic checkpoints are not part of this slice.
+engine, which the conformance tests pin (the compiled tier within the
+reference's documented float tolerance).  The reference's fused superstep
+and periodic checkpoints are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.stats import ClusterState, SPLWindow
-from repro_torch.device import resolve_device
+from repro_torch.device import declared_sync, resolve_device
 from repro_torch.engine import serde
 from repro_torch.engine.backpressure import CreditController, LatencyTracker
 from repro_torch.engine.config import ExecutionConfig
@@ -84,6 +94,13 @@ class EngineMetrics:
     # Batches routed to a schema-declared operator as native-dtype arrays
     # (0 with use_schema=False — the all-object oracle configuration).
     typed_batches: int = 0
+    # Compiled-tier usage: fn_jit segment executions, tuples through them,
+    # distinct (operator, padding bucket) first calls — the reference's
+    # compile count — and host↔device boundaries: one per jit call.
+    jit_calls: int = 0
+    jit_tuples: int = 0
+    jit_compiles: int = 0
+    jit_host_syncs: int = 0
     # Routing on the card, per destination operator id: batches routed, and
     # of those the ones partitioned by the keygroup_partition kernel and
     # sorted by the radix_sort kernel (a single-key-group batch needs no
@@ -192,12 +209,6 @@ class Engine:
         use_fn_seg = config.use_fn_seg
         use_schema = config.use_schema
         topology.validate()
-        for o in topology.operators:
-            if o.fn_jit is not None or o.state_schema is not None:
-                raise ValueError(
-                    f"operator {o.name!r} declares the compiled tier (fn_jit/"
-                    "state_schema), which repro_torch does not run yet"
-                )
         self.topology = topology
         self.num_nodes = num_nodes
         self.capacity = np.ones(num_nodes) if capacity is None else np.asarray(capacity)
@@ -255,6 +266,24 @@ class Engine:
         self._op_schema: list[Optional[Schema]] = [
             o.schema if use_schema else None for o in topology.operators
         ]
+        # use_fn_jit=True enables the compiled tier: operators declaring
+        # fn_jit execute their contiguous whole-budget segments through
+        # repro_torch.engine.jitexec (state in device columns); everything
+        # else — and every fallback path — behaves exactly as without it.
+        self._op_fn_jit = [
+            o.fn_jit if config.use_fn_jit else None for o in topology.operators
+        ]
+        self._jit = None  # JitRuntime, built on first fn_jit execution
+        self._jit_on = any(f is not None for f in self._op_fn_jit)
+        # Deferred jit segments of the current tick: the drain collects them
+        # (accounting immediately, placeholder cells hold output order) and
+        # one batched call per operator executes at end of tick — the BSP
+        # superstep makes the deferral invisible (outputs only route at
+        # _flush_outputs), and a per-run fallback on a jit operator
+        # force-flushes first so state updates stay in drain order.
+        self._jit_batch: list = []
+        self._had_sink_cells = False
+        self._sink_tail_base = 0
         # Device copy of the routing table for the on-card node lookup,
         # refreshed whenever Router.version moves.
         self._table_dev: Optional[torch.Tensor] = None
@@ -337,18 +366,20 @@ class Engine:
 
     # ----------------------------------------------------- device transfers
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """One host→device copy (counted)."""
+        """One host→device copy (counted, a declared synchronization)."""
         m = self.metrics
         m.host_device_copies += 1
         m.host_device_bytes += arr.nbytes
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        with declared_sync(self.device):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _download(self, t: torch.Tensor) -> np.ndarray:
-        """One device→host copy (counted)."""
+        """One device→host copy (counted, a declared synchronization)."""
         m = self.metrics
         m.host_device_copies += 1
         m.host_device_bytes += t.numel() * t.element_size()
-        return t.cpu().numpy()
+        with declared_sync(self.device):
+            return t.cpu().numpy()
 
     def _device_table(self) -> torch.Tensor:
         """The routing table on the device, re-uploaded on a version change."""
@@ -626,6 +657,9 @@ class Engine:
         service_rate = self.service_rate
         caps = self._capacity_list
         alive = self.alive.tolist()
+        jit_on = self._jit_on
+        if jit_on:
+            self._sink_tail_base = len(self.metrics.sink_outputs)
         for node, q in enumerate(self._queues):
             if not q or not alive[node]:
                 continue
@@ -634,6 +668,11 @@ class Engine:
                 self._drain_soa(node, q, budget, drained_kgs, drained_costs)
             else:
                 q.drain(budget, self._process, node, drained_kgs, drained_costs)
+        if jit_on:
+            if self._jit_batch:
+                self._flush_jit_batch()
+            if self._had_sink_cells:
+                self._expand_sink_cells()
         if drained_kgs:
             np.add.at(self._cpu_usage, drained_kgs, drained_costs)
         self._flush_outputs()
@@ -662,10 +701,12 @@ class Engine:
         seg_calls = seg_tuples = 0
         kg_append, cost_append = out_kgs.append, out_costs.append
         op_fn_seg = self._op_fn_seg
+        op_fn_jit = self._op_fn_jit
         while segs and budget > 0:
             seg = segs[0]
             keys, values, ts, op, kgs, starts, ends, costs, cur, contig = seg
             fn = op_fn[op]
+            fjit = op_fn_jit[op]
             term = terminal[op]
             downs = downstream[op]
             nruns = len(kgs)
@@ -683,15 +724,51 @@ class Engine:
                     budget -= c
                     qcost -= c
                 fseg = op_fn_seg[op]
-                if contig and (fn is None or fseg is not None):
+                if contig and (fn is None or fseg is not None or fjit is not None):
                     # Contiguous segment: the runs tile one slice [A:Z) of
                     # the shared arrays, so the whole segment moves with a
                     # handful of array ops — pass-through forwards the slice
-                    # as-is; fn_seg ops transform it in one vectorized call.
+                    # as-is; fn_seg ops transform it in one vectorized call;
+                    # fn_jit ops defer to the compiled tier's batched
+                    # end-of-tick call (placeholder cells keep output order).
                     rk, rs, re_ = kgs[cur:], starts[cur:], ends[cur:]
                     a0, zn = rs[0], re_[-1]
                     n_seg = zn - a0
                     processed += n_seg
+                    if fjit is not None and fn is not None:
+                        rel_s = [a - a0 for a in rs] if a0 else rs
+                        rel_e = [z - a0 for z in re_] if a0 else re_
+                        if term:
+                            cell = None
+                            if collect:
+                                cell = []
+                                sink_outputs.append(cell)
+                                self._had_sink_cells = True
+                        else:
+                            cell = []
+                            for dop in downs:
+                                try:
+                                    pending[dop].append(cell)
+                                except KeyError:
+                                    pending[dop] = [cell]
+                        self._jit_batch.append(
+                            (
+                                op,
+                                rk,
+                                rel_s,
+                                rel_e,
+                                keys[a0:zn],
+                                values[a0:zn],
+                                ts[a0:zn],
+                                cell,
+                                term,
+                                node,
+                            )
+                        )
+                        segs.popleft()
+                        if budget <= 0:
+                            break
+                        continue
                     if fn is None:
                         outputs = (keys[a0:zn], values[a0:zn], ts[a0:zn])
                         out_lens = None
@@ -757,6 +834,12 @@ class Engine:
                     if fn is None:
                         out = (k, v, t)
                     else:
+                        if fjit is not None:
+                            # Per-run fallback on a jit-tier operator: apply
+                            # deferred jit segments first (state updates stay
+                            # in drain order), then pull the key group's
+                            # device columns into the dict.
+                            self._jit_fallback(kg)
                         state = store[kg]
                         state, outputs = fn(state, k, v, t)
                         store[kg] = state
@@ -806,6 +889,8 @@ class Engine:
                 if fn is None:  # source pass-through: forward the batch as-is
                     out = (k, v, t)
                 else:
+                    if fjit is not None:
+                        self._jit_fallback(kg)
                     state = store[kg]
                     state, outputs = fn(state, k, v, t)
                     store[kg] = state
@@ -852,6 +937,113 @@ class Engine:
         metrics.sink_tuples += sink_n
         metrics.seg_calls += seg_calls
         metrics.seg_tuples += seg_tuples
+
+    def _jit_fallback(self, kg: int) -> None:
+        """Before a per-run ``fn`` on a jit-tier operator's key group: run
+        the tick's deferred jit segments, then make the key group's dict
+        authoritative."""
+        if self._jit_batch:
+            self._flush_jit_batch()
+        if self._jit is not None:
+            self._jit.ensure_dict(kg)
+
+    def _flush_jit_batch(self) -> None:
+        """Execute the tick's deferred jit segments, one call per operator.
+
+        Segments collected across nodes concatenate into a single padded
+        call per operator (runs stay in drain order; key groups are
+        node-disjoint, so state updates commute across the concat), and the
+        results are split back into the placeholder cells the drain left in
+        ``_out_pending`` / ``sink_outputs`` — output order is therefore
+        exactly what per-segment inline execution would have produced.
+        """
+        batch, self._jit_batch = self._jit_batch, []
+        by_op: dict[int, list] = {}
+        for entry in batch:
+            by_op.setdefault(entry[0], []).append(entry)
+        metrics = self.metrics
+        for op, entries in by_op.items():
+            if len(entries) == 1:
+                (_, rk, rs, re_, keys, values, ts, *_rest) = entries[0]
+                outputs, out_lens = self._jit_exec(op, rk, rs, re_, keys, values, ts)
+                parts = [(entries[0], outputs, out_lens)]
+            else:
+                cat_k = np.concatenate([e[4] for e in entries])
+                cat_v = np.concatenate([e[5] for e in entries])
+                cat_t = np.concatenate([e[6] for e in entries])
+                rk, rs, re_ = [], [], []
+                off = 0
+                bounds = []
+                for e in entries:
+                    rk.extend(e[1])
+                    rs.extend(a + off for a in e[2])
+                    re_.extend(z + off for z in e[3])
+                    bounds.append((len(e[1]), len(e[4])))
+                    off += len(e[4])
+                outputs, out_lens = self._jit_exec(op, rk, rs, re_, cat_k, cat_v, cat_t)
+                # Split the concatenated output back per source segment.
+                parts = []
+                run0 = 0
+                pos = 0
+                for e, (nrun, n_in) in zip(entries, bounds):
+                    if outputs is None:
+                        parts.append((e, None, None))
+                    elif out_lens is None:
+                        parts.append((e, tuple(o[pos : pos + n_in] for o in outputs), None))
+                        pos += n_in
+                    else:
+                        lens_e = out_lens[run0 : run0 + nrun]
+                        n_out = int(sum(lens_e))
+                        parts.append((e, tuple(o[pos : pos + n_out] for o in outputs), lens_e))
+                        pos += n_out
+                    run0 += nrun
+            for e, outputs, out_lens in parts:
+                (_, rk, rs, re_, _, _, _, cell, term, node) = e
+                if outputs is None:
+                    continue
+                n_out = len(outputs[0])
+                if n_out == 0:
+                    continue
+                metrics.emitted_tuples += n_out
+                if term:
+                    metrics.sink_tuples += n_out
+                    if cell is not None:
+                        cell.extend(
+                            zip(outputs[0].tolist(), outputs[1].tolist(), outputs[2].tolist())
+                        )
+                else:
+                    if out_lens is None:
+                        lens = np.subtract(re_, rs)
+                    else:
+                        lens = np.asarray(out_lens, dtype=np.int64)
+                    kg_arr = np.repeat(np.asarray(rk, dtype=np.int64), lens)
+                    cell.append((outputs, kg_arr, node))
+
+    def _expand_sink_cells(self) -> None:
+        """Flatten this tick's sink placeholder cells in place (cells were
+        appended in drain order; only the tick's tail is rebuilt)."""
+        self._had_sink_cells = False
+        outs = self.metrics.sink_outputs
+        base = self._sink_tail_base
+        tail = outs[base:]
+        del outs[base:]
+        for item in tail:
+            if type(item) is list:
+                outs.extend(item)
+            else:
+                outs.append(item)
+
+    def _jit_exec(self, op, kgs, starts, ends, keys, values, ts):
+        """Hand one contiguous segment to the compiled tier (the runtime is
+        built on the first fn_jit execution)."""
+        jrt = self._jit
+        if jrt is None:
+            from repro_torch.engine.jitexec import JitRuntime
+
+            jrt = self._jit = JitRuntime(
+                self.topology, self.store, self.metrics, self._kg_op, device=self.device
+            )
+        return jrt.execute(op, kgs, starts, ends, keys, values, ts)
 
     def _process(self, node: int, op: int, kg: int, keys, values, ts) -> None:
         metrics = self.metrics
@@ -929,8 +1121,13 @@ class Engine:
             return
         pending, self._out_pending = self._out_pending, {}
         op_schema = self._op_schema
+        jit_on = self._jit_on
         for dop in sorted(pending):
             items = pending[dop]
+            if jit_on:
+                # Expand jit placeholder cells (a cell is a list holding the
+                # segment's delivered item, empty when it emitted nothing).
+                items = [x for it in items for x in (it if type(it) is list else (it,))]
             if not items:  # list pre-bound by the drain fast path, unused
                 continue
             schema = op_schema[dop]
@@ -975,6 +1172,11 @@ class Engine:
     # ------------------------------------------------------- SPL statistics
     def end_period(self) -> ClusterState:
         """Fold the SPL window into a ClusterState snapshot and reset it."""
+        if self._jit is not None:
+            # Statistics (and any external reader of the store) see dicts:
+            # refresh every column-authoritative key group before |σ_k| is
+            # re-measured below.
+            self._jit.sync_store()
         ticks = max(self._ticks_this_period, 1)
         scale = 100.0 / (ticks * self.service_rate)  # → % of a reference node
         kg_load, out_pairs, _resource = self.window.fold(scale_to_percent=scale)
@@ -1016,12 +1218,20 @@ class Engine:
             self._backlog.setdefault(keygroup, []).extend(batches)
 
     def serialize(self, keygroup: int) -> bytes:
+        if self._jit is not None:
+            # σ_k may live in jit-tier device columns: materialize the dict
+            # (insertion order included) so the blob is the oracle's pickle.
+            self._jit.ensure_dict(keygroup)
         backlog = self._backlog.pop(keygroup, [])
         return serde.encode_migration(self.store.serialize(keygroup), backlog)
 
     def install(self, keygroup: int, dst: int, blob: bytes) -> None:
         state_blob, backlog = serde.decode_migration(blob)
         self.store.deserialize(keygroup, state_blob)
+        if self._jit is not None:
+            # The installed dict is now authoritative; stale device columns
+            # will be re-pushed on the key group's next jit execution.
+            self._jit.invalidate(keygroup)
         op = int(self._kg_op[keygroup])
         # Any backlog still parked engine-side replays too: a blob that did
         # not come from serialize() (bare checkpoint pickles in failure
@@ -1062,7 +1272,9 @@ class Engine:
 
     def load_reference_state(self, table, blobs: dict[int, bytes]) -> None:
         """Continue from another engine's state: adopt its routing table and
-        install one envelope per key group.
+        install one envelope per key group (under ``.jit()`` each installed
+        key group's dict becomes authoritative, and its next call rebuilds
+        its device columns from it).
 
         ``table`` is the routing table (key group → node) and ``blobs`` maps
         key groups to migration envelopes — the reference engine's

@@ -129,24 +129,25 @@ class Schema:
 # Compiled segment-level state transition (optional, the jit tier):
 #   fn_jit(state_cols, kgs, starts, ends, keys, values, ts)
 #       -> (state_cols', outputs, out_counts)
-# A *pure JAX* function over column arrays, compiled once per (operator,
-# padding bucket) by :mod:`repro_torch.engine.jitexec` and executed as one
-# ``jax.jit`` call per (node, operator) contiguous segment.  ``state_cols``
-# is the operator's declared :class:`StateSchema` layout (per-key-group
-# device columns — scalar vectors and keyed tables — instead of the python
-# ``store`` dicts); ``kgs`` holds *local* key-group ids padded with the
-# operator's key-group count, ``starts``/``ends`` are padded with the real
-# tuple count (padding runs are empty), and ``values`` is a dict of native
-# column arrays on record schemas (a plain array on scalar schemas).  Tuple
+# A *pure PyTorch* function over column tensors on the engine's device,
+# executed by :mod:`repro_torch.engine.jitexec` as one call per operator per
+# tick (segments of every node concatenated; tuple and run counts padded to
+# power-of-two buckets).  ``state_cols`` is the operator's declared
+# :class:`StateSchema` layout (per-key-group device columns — scalar
+# vectors, window rings and keyed tables — instead of the python ``store``
+# dicts); ``kgs`` holds *local* key-group ids padded with the operator's
+# key-group count, ``starts``/``ends`` are padded with the real tuple count
+# (padding runs are empty), and ``values`` is a dict of native column
+# tensors on record schemas (a plain tensor on scalar schemas).  Tuple
 # validity is derived from the run bounds (``jitexec.tuple_valid``), never
-# from array lengths, so the same body runs under padding and under
-# ``shard_map`` run-sharding unchanged.  ``outputs`` is ``None`` or
-# ``(out_keys, out_values, out_ts)`` with ``out_values`` a column dict /
-# array in the operator's output layout; ``out_counts`` follows the fn_seg
-# contract (None = one output per input tuple).  Must be semantically
-# identical to ``fn_seg`` — bit-exact on integers and single float ops, with
-# XLA reduction-order divergence allowed *only* for multi-term float
-# reductions (running sums), see docs/operator_authoring.md.
+# from tensor lengths.  ``outputs`` is ``None`` or ``(out_keys, out_values,
+# out_ts)`` with ``out_values`` a column dict / tensor in the operator's
+# output layout; ``out_counts`` follows the fn_seg contract (None = one
+# output per input tuple).  Must be semantically identical to ``fn_seg`` —
+# bit-exact on integers and single float ops, with reduction-order
+# divergence allowed *only* for multi-term float reductions (running sums),
+# and free of host synchronizations (no boolean masks, ``.item()`` or
+# ``nonzero``): the runtime makes the call's one read.
 JitFn = Callable[..., tuple]
 
 

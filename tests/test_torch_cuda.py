@@ -12,7 +12,12 @@ stream.  The RG-LRU scan is held bit for bit against its plain version
 (both round each product and sum to f32), the expert matmul at the bf16/f32
 tolerances above, at ragged and full shapes and once per body of
 ``kernel_path``, and RecurrentGemma and Moonlight SMOKE prefill + decode on
-the card against ``device="cpu"``.  Without a card every test here skips.  On
+the card against ``device="cpu"``.  The compiled tier's
+``keyed_running_sum`` is held against its CPU run at 2^16 tuples through
+table growth, and a ``.jit()`` engine ticks under
+``torch.cuda.set_sync_debug_mode("error")``: only its declared reads (the
+runtime's one per call, routing's downloads) may synchronize.  Without a
+card every test here skips.  On
 the card: ``python -m pytest -m gpu tests/test_torch_cuda.py`` (this file
 imports neither jax nor the reference package).
 """
@@ -274,6 +279,86 @@ def test_engine_on_card_matches_cpu(cuda):
     ]
     assert np.array_equal(gpu.window.kg_arrivals, cpu.window.kg_arrivals)
     assert gpu.metrics.partition_kernel_batches == gpu.metrics.routed_batches
+
+
+def test_keyed_running_sum_on_card_matches_cpu(cuda):
+    """2^16 tuples a call, four calls, the table grown before each as the
+    runtime grows it (64 → 2^16 → 2^17 → 2^18 slots): integers equal, floats
+    at the tier's rtol 1e-9 (the card's kernels may associate differently)."""
+    from repro_torch.engine import jitexec as jx
+
+    rng = np.random.default_rng(11)
+    nb = 1 << 16
+    tables = {d: jx.empty_table(jx._MIN_TABLE_CAP, np.float64, d) for d in ("cpu", cuda)}
+    cnt = 0
+    for call in range(4):
+        hot = np.minimum(rng.zipf(1.3, size=nb), 10**6)  # hits across calls
+        codes = np.where(rng.random(nb) < 0.5, hot, rng.integers(0, 400_000, size=nb))
+        codes = codes.astype(np.int64)
+        kg = codes % 1000
+        add = rng.normal(14.0, 32.0, size=nb)
+        valid = np.arange(nb) < nb - 100
+        cap = jx._bucket(cnt + nb, jx._MIN_TABLE_CAP)
+        out = {}
+        for d, t in tables.items():
+            if cap > t.codes.shape[0]:
+                t = jx.grown_table(t, cap)
+            args = [torch.from_numpy(a).to(d) for a in (codes, kg, add, valid)]
+            tables[d], run = jx.keyed_running_sum(t, *args)
+            out[d] = run.cpu().numpy()
+        a, b = tables["cpu"], tables[cuda]
+        for name in ("codes", "seq", "owner", "perm", "cnt", "epoch"):
+            assert torch.equal(getattr(a, name), getattr(b, name).cpu()), name
+        np.testing.assert_allclose(b.vals.cpu().numpy(), a.vals.numpy(), rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(out[cuda][valid], out["cpu"][valid], rtol=1e-9, atol=1e-9)
+        cnt = int(a.cnt)
+    assert a.codes.shape[0] == 1 << 18 and cnt > 1 << 16
+
+
+def test_jit_engine_tick_has_no_undeclared_sync(cuda):
+    """Real Job 3 under ``.jit()`` on the card: after warm-up, ticks run
+    under ``set_sync_debug_mode("error")`` — a boolean mask, ``.item()`` or
+    ``nonzero`` in a body or helper would raise; the runtime's one read per
+    call and routing's downloads are declared.  States then match the CPU
+    ``.jit()`` engine's."""
+    from repro_torch.data import StreamSpec, airline_stream, real_job_3
+    from repro_torch.engine import Engine, ExecutionConfig
+
+    engines = [
+        Engine(real_job_3(keygroups_per_op=50), 8, service_rate=1e9, device=d,
+               config=ExecutionConfig.jit())
+        for d in ("cuda", "cpu")
+    ]
+    gpu, cpu = engines
+    feed = airline_stream(StreamSpec(rate=3000.0, seed=1))
+    batches = [next(feed) for _ in range(8)]
+    for t, (k, v, ts) in enumerate(batches):
+        for eng in engines:
+            eng.push_source("airline", k, v, ts)
+            if t >= 3 and eng is gpu:
+                calls = gpu.metrics.jit_calls
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.tick()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                assert gpu.metrics.jit_calls > calls
+            else:
+                eng.tick()
+    for _ in range(4):
+        for eng in engines:
+            eng.tick()
+    assert gpu.metrics.jit_host_syncs == gpu.metrics.jit_calls
+    for field in ("jit_calls", "jit_compiles", "sink_tuples", "processed_tuples"):
+        assert getattr(gpu.metrics, field) == getattr(cpu.metrics, field), field
+    assert np.array_equal(gpu.window.kg_arrivals, cpu.window.kg_arrivals)
+    gpu.end_period(), cpu.end_period()
+    for (_, a), (_, b) in zip(gpu.store.items(), cpu.store.items()):
+        assert list(a) == list(b)
+        for name in a:
+            assert list(a[name]) == list(b[name])
+            np.testing.assert_allclose(list(a[name].values()), list(b[name].values()),
+                                       rtol=1e-9, atol=1e-9)
 
 
 ATTN_TOL = {torch.float32: dict(atol=3e-5, rtol=3e-5),

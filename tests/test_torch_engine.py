@@ -12,8 +12,15 @@ routes through its kernels' plain PyTorch versions, so this also holds the
 partition/histogram and composite-sort wiring against the reference's numpy
 routing.
 
+The port's compiled tier (``ExecutionConfig.jit()``) is held to the same
+fields, with the harness's documented float tolerance (rtol 1e-9 on floats
+in sink outputs and states, and only there), against the reference's
+``.typed()`` and ``.jit()`` engines; its jit counters equal the reference
+``.jit()`` run's call for call.
+
 Beyond the harness: cross-loading reference state into the port
-(``load_reference_state``), and a 4-period ALBIC controller run whose
+(``load_reference_state``, also from a reference ``.jit()`` engine into a
+port ``.jit()`` engine), and a 4-period ALBIC controller run whose
 deterministic ``PeriodMetrics`` fields must match.
 """
 
@@ -24,7 +31,10 @@ import numpy as np
 import pytest
 
 from conformance import (
+    JIT_FLOAT_ATOL,
+    JIT_FLOAT_RTOL,
     METRIC_FIELDS,
+    approx_equal,
     assert_equivalent,
     normalize,
     run_scenario,
@@ -54,6 +64,7 @@ PORT_CONFIGS = {
     "typed": port_engine.ExecutionConfig.typed(),
     "seg": port_engine.ExecutionConfig.seg(),
     "oracle": port_engine.ExecutionConfig.oracle(),
+    "jit": port_engine.ExecutionConfig.jit(),
 }
 
 
@@ -131,6 +142,12 @@ def run_port_scenario(topo_factory, feeder_factory, scenario, config):
         "alloc": eng.router.table.tolist(),
         "queue_costs": eng.queue_costs(),
         "migration_blobs": migration_blobs,
+        "seg_calls": eng.metrics.seg_calls,
+        "seg_tuples": eng.metrics.seg_tuples,
+        "typed_batches": eng.metrics.typed_batches,
+        "jit_calls": eng.metrics.jit_calls,
+        "jit_compiles": eng.metrics.jit_compiles,
+        "jit_host_syncs": eng.metrics.jit_host_syncs,
     }
     return result, eng
 
@@ -165,6 +182,24 @@ def test_port_engine_matches_reference(job, scenario, config):
     assert m.partition_kernel_batches == expect
     assert 0 < sum(m.sort_kernel_batches.values()) <= sum(m.routed_batches.values())
     assert m.host_device_copies > 0
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS), ids=str)
+@pytest.mark.parametrize("job", JOBS, ids=str)
+def test_port_jit_counters_match_reference_jit(job, scenario):
+    """The port's ``.jit()`` engine against the reference's ``.jit()``: every
+    pinned field (floats at the jit tolerance) and the compiled tier's
+    counters — calls, first calls per padding bucket (the reference's
+    compiles) and host syncs — equal, call for call."""
+    cfg = ref_engine.ExecutionConfig.jit()
+    ref = run_scenario(*_ref_factories(job), SCENARIOS[scenario], cfg)
+    port, _ = run_port_scenario(
+        *_port_factories(job), SCENARIOS[scenario], port_engine.ExecutionConfig.jit()
+    )
+    assert_equivalent({f"ref:{cfg.name}": ref, f"port:{cfg.name}": port})
+    assert port["jit_calls"] > 0
+    for field in ("jit_calls", "jit_compiles", "jit_host_syncs", "seg_calls", "seg_tuples"):
+        assert port[field] == ref[field], field
 
 
 def _drive(eng, feeds, ticks, drain):
@@ -340,3 +375,61 @@ def test_albic_controller_matches_reference(job):
     assert pe.router.table.tolist() == re_.router.table.tolist()
     for kg in range(re_.topology.num_keygroups):
         assert normalize(pe.store.get(kg)) == normalize(re_.store.get(kg)), kg
+
+
+def _close(a, b) -> bool:
+    return approx_equal(normalize(a), normalize(b), JIT_FLOAT_RTOL, JIT_FLOAT_ATOL)
+
+
+@pytest.mark.parametrize("queued", [False, True], ids=["drained", "backlog"])
+def test_load_reference_jit_state_continues_identically(queued):
+    """A reference ``.jit()`` engine's state — its device columns
+    materialized (``sync_store`` at ``end_period``, ``ensure_dict`` in each
+    export) — installs into a port ``.jit()`` engine, whose columns are then
+    rebuilt from the installed dicts; both continue alike (floats at the jit
+    tolerance, everything else exact)."""
+    ref_topo, ref_feeds = _ref_factories("job3")
+    port_topo, port_feeds = _port_factories("job3")
+    ref = ref_engine.Engine(
+        ref_topo(), 4, service_rate=1e9, seed=0, config=ref_engine.ExecutionConfig.jit()
+    )
+    feeds = ref_feeds()
+    _drive(ref, feeds, ticks=6, drain=4)
+    consumed = 6
+    g = ref.topology.num_keygroups
+    if queued:
+        _drive(ref, feeds, ticks=1, drain=0)
+        consumed += 1
+        blobs = {}
+        for kg in range(g):
+            node = ref.router.node_of(kg)
+            ref.redirect(kg, node)
+            blobs[kg] = ref.serialize(kg)
+            ref.install(kg, node, blobs[kg])
+        assert any(ref.queue_costs())
+    else:
+        blobs = {kg: ref.export_keygroup(kg).blob for kg in range(g)}
+    ref.end_period()
+    assert ref.metrics.jit_calls > 0
+    port = port_engine.Engine(
+        port_topo(), 4, service_rate=1e9, seed=7, device="cpu",
+        config=port_engine.ExecutionConfig.jit(),
+    )
+    port.load_reference_state(ref.router.table.copy(), blobs)
+    assert port.queue_costs() == ref.queue_costs()
+    port_it = port_feeds()
+    for _ in range(consumed):
+        for it in port_it.values():
+            next(it)
+    n_sink = len(ref.metrics.sink_outputs)
+    _drive(ref, feeds, ticks=5, drain=4)
+    _drive(port, port_it, ticks=5, drain=4)
+    s_ref, s_port = ref.end_period(), port.end_period()
+    assert port.metrics.jit_calls > 0
+    assert _close(port.metrics.sink_outputs, ref.metrics.sink_outputs[n_sink:])
+    for kg in range(g):
+        assert _close(port.store.get(kg), ref.store.get(kg)), kg
+    assert s_port.kg_load.tolist() == s_ref.kg_load.tolist()
+    assert s_port.kg_tuple_rate.tolist() == s_ref.kg_tuple_rate.tolist()
+    assert s_port.kg_state_bytes.tolist() == s_ref.kg_state_bytes.tolist()
+    assert s_port.out_pairs.rate.tolist() == s_ref.out_pairs.rate.tolist()

@@ -3,7 +3,8 @@ neither jax nor anything of the reference package ``repro``.
 
 Pinned two ways: statically, over every import statement (top level or
 nested) in the port's sources and the chip smoke script; and at run time,
-by importing the package, running a small Real Job 3 and one SMOKE decode
+by importing the package, running a small Real Job 3 (under ``.typed()``
+and under the compiled tier, ``.jit()``) and one SMOKE decode
 tick of the serve loop for a dense, a hybrid (RG-LRU + windowed attention)
 and a MoE config in a subprocess where ``import jax`` and ``import repro``
 fail.
@@ -66,17 +67,25 @@ import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
 import repro_torch.models.moe, repro_torch.models.rglru
 import repro_torch.kernels.moe_gemm, repro_torch.kernels.rglru_scan
 from repro_torch.data import StreamSpec, airline_stream, real_job_3
-from repro_torch.engine import Engine
-eng = Engine(real_job_3(keygroups_per_op=8), 3, service_rate=1e9, device="cpu")
-feed = airline_stream(StreamSpec(rate=60.0, seed=2))
-for _ in range(4):
-    k, v, ts = next(feed)
-    eng.push_source("airline", k, v, ts)
-    eng.tick()
-for _ in range(4):
-    eng.tick()
-snap = eng.end_period()
-assert eng.metrics.sink_tuples > 0 and snap.kg_load.sum() > 0
+from repro_torch.engine import Engine, ExecutionConfig
+engines = []
+for config in (ExecutionConfig.typed(), ExecutionConfig.jit()):
+    eng = Engine(real_job_3(keygroups_per_op=8), 3, service_rate=1e9, device="cpu",
+                 config=config)
+    feed = airline_stream(StreamSpec(rate=60.0, seed=2))
+    for _ in range(4):
+        k, v, ts = next(feed)
+        eng.push_source("airline", k, v, ts)
+        eng.tick()
+    for _ in range(4):
+        eng.tick()
+    snap = eng.end_period()
+    assert eng.metrics.sink_tuples > 0 and snap.kg_load.sum() > 0
+    engines.append(eng)
+typed, jit = engines
+assert jit.metrics.jit_calls > 0 and jit.metrics.jit_host_syncs == jit.metrics.jit_calls
+assert jit.metrics.sink_tuples == typed.metrics.sink_tuples
+assert [list(s) for _, s in jit.store.items()] == [list(s) for _, s in typed.store.items()]
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 try:
