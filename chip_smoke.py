@@ -54,6 +54,28 @@ error or mismatch:
    seconds apart, host↔device copies and bytes, the busy share, and
    ``keyed_running_sum``'s device and host ms per call at the steady
    segment size (3 rounds);
+3s. the fused superstep (``ExecutionConfig.superstep()``) on the
+   benchmark's record pipeline (``benchmarks/engine_throughput.py``'s
+   record stages and counting sink at depth 4, ported) at phase 3's size:
+   1000 key groups per operator, 16 nodes, 2^20-tuple batches, K = 20
+   batches a scan.  (a) fused ``tick()`` calls with a redirect → serialize →
+   install migration mid-run against the card's ``.jit()`` engine: every
+   field ``tests/test_superstep.py::_result`` pins equal, the blob bytes
+   identical, one host sync per fused tick; (b) ``run_supersteps(K)``,
+   with the stages' ``jit_key_map`` (routing staged on the card) and
+   without it (routing inside the scan), against the ``.jit()`` engine
+   ticked over the same K batches until drained: equal, one host sync a
+   scan; (c) the captured scan's replay bit-identical to the same loop run
+   eagerly on its staged inputs; (d) each hop's key groups and order,
+   computed inside the graph, bit for bit against the kernels' plain
+   versions, and a swap of two equal codes rejected; (e) a scan and fused
+   ticks under ``torch.cuda.set_sync_debug_mode("error")``.  Prints the
+   fused tick's and the timed (replayed) scan's processed tuples/s, the
+   ``.jit()`` engine's and ``vs_jit`` (as the reference's
+   ``engine_throughput/superstep_jit`` row), the first call's warm-up and
+   capture seconds, the replay alone (CUDA events), the device's busy share
+   of the timed scan (``torch.profiler``), copies and bytes, host syncs,
+   and the routing kernels' launches (wrapper counts, and per replay);
 4. the ALBIC controller (``Controller.period()``) on Real Job 3 in the
    real-jobs benchmark's setup (anti-collocated start, ``max_migrations=10``,
    ``ser_cost=0.6``, ``service_rate=3000``) for 6 periods, under ``.typed()``
@@ -97,7 +119,7 @@ error or mismatch:
    per slot); the weights of the earlier models are freed first;
 
 then one JSON line listing the kernels with their launches on the paths
-that run them (phases 3, 3j and 4 for routing, 5-8 for the LM kernels), times,
+that run them (phases 3, 3j, 3s and 4 for routing, 5-8 for the LM kernels), times,
 bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
 and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
 without CUDA, and outside a checkout that holds ``src/repro_torch``.
@@ -1152,11 +1174,10 @@ def profile_ticks(eng, batches) -> dict:
                 top=[(k, round(us / 1e3, 3), n) for us, k, n in rows[:8]])
 
 
-def host_profile(eng, batches, top: int = 12) -> list:
-    """Where the host's time goes in steady ticks (push + tick each, then a
-    synchronization): cProfile's cumulative seconds of the port's own
-    functions, largest first, as (function, seconds, calls).  cProfile
-    charges every Python call, so the Python-heavy parts read high."""
+def host_profile_call(fn, top: int = 12) -> list:
+    """cProfile's cumulative seconds of the port's own functions over one
+    call of ``fn`` (then a synchronization), largest first, as (function,
+    seconds, calls)."""
     import cProfile
     import pstats
 
@@ -1164,15 +1185,27 @@ def host_profile(eng, batches, top: int = 12) -> list:
 
     prof = cProfile.Profile()
     prof.enable()
-    for k, v, ts in batches:
-        eng.push_source("airline", k, v, ts)
-        eng.tick()
+    fn()
     torch.cuda.synchronize()
     prof.disable()
-    rows = [(f"{Path(f).stem}.{fn}", ct, nc)
-            for (f, _, fn), (_, nc, _, ct, _) in pstats.Stats(prof).stats.items()
+    rows = [(f"{Path(f).stem}.{name}", ct, nc)
+            for (f, _, name), (_, nc, _, ct, _) in pstats.Stats(prof).stats.items()
             if "repro_torch" in f]
     return [(name, round(ct, 4), nc) for name, ct, nc in sorted(rows, key=lambda r: -r[1])[:top]]
+
+
+def host_profile(eng, batches, top: int = 12) -> list:
+    """Where the host's time goes in steady ticks (push + tick each, then a
+    synchronization): cProfile's cumulative seconds of the port's own
+    functions, largest first, as (function, seconds, calls).  cProfile
+    charges every Python call, so the Python-heavy parts read high."""
+
+    def ticks():
+        for k, v, ts in batches:
+            eng.push_source("airline", k, v, ts)
+            eng.tick()
+
+    return host_profile_call(ticks, top)
 
 
 def time_keyed_running_sum(eng, batch) -> dict:
@@ -1367,6 +1400,344 @@ def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks
         + ("not measured" if share is None else f"{100 * share:.3f} %")
         + f"; profiled wall {prof['profiled_wall_s']:.3f} s); top device events (ms, count): "
         f"{prof['top']}")
+    return res
+
+
+# --------------------------------------------------------------------- phase 3s
+# The fused superstep on the benchmark's record pipeline
+# (benchmarks/engine_throughput.py:150-265) at phase 3's deployment size:
+# BATCH-tuple batches, KGS key groups per operator, NODES nodes.
+SS_DEPTH = 4  # src → stage0 → stage1 → stage2 → sink
+SS_K = 20  # batches per run_supersteps scan
+SS_FUSED_TICKS = 6  # fused tick() batches in check (a); a migration at ticks 2-3
+SS_MIGRATE_KG = 1007  # a key group of stage0 (global id)
+REC_FIELDS = [("a", "i8"), ("b", "f8")]
+
+
+def record_pipeline(kgs: int, depth: int, *, key_map: bool):
+    """``benchmarks/engine_throughput.py``'s ``make_record_pipeline_job``
+    (``_REC_SCHEMA``, ``_COUNT_STATE``, ``_record_stage(17 * (i + 1))``,
+    ``_counting_sink*``) on the port's classes, with torch ``fn_jit``
+    bodies; ``key_map`` declares the stages' ``jit_key_map`` (over key
+    tensors), which puts the scan's routing into staging."""
+    from repro_torch.engine import jitexec as jx
+    from repro_torch.engine.topology import (
+        OperatorSpec,
+        Schema,
+        StateField,
+        StateSchema,
+        Topology,
+    )
+
+    schema = Schema.record(REC_FIELDS)
+    count = StateSchema((StateField("n", "scalar", dtype=np.int64, py=int),))
+
+    def stage(shift):
+        def fn(state, keys, values, ts):
+            state["n"] = state.get("n", 0) + len(keys)
+            return state, [(k, (v[0], v[1] + v[0]), t)
+                           for k, v, t in zip(keys.tolist(), values.tolist(), ts.tolist())]
+
+        def fn_seg(store, run_kgs, starts, ends, keys, values, ts):
+            for kg, a, z in zip(run_kgs, starts, ends):
+                store[kg]["n"] = store[kg].get("n", 0) + (z - a)
+            out = np.empty(len(values), dtype=schema.value)
+            out["a"], out["b"] = values["a"], values["b"] + values["a"]
+            return (keys + shift, out, ts), None
+
+        def fn_jit(state, run_kgs, starts, ends, keys, values, ts):
+            out = {"a": values["a"], "b": values["b"] + values["a"]}
+            col = jx.count_runs(state["n"], run_kgs, starts, ends)
+            return {"n": col}, (keys + shift, out, ts), None
+
+        return fn, fn_seg, fn_jit, (lambda k: k + shift) if key_map else None
+
+    def sink(state, keys, values, ts):
+        state["n"] = state.get("n", 0) + len(keys)
+        return state, []
+
+    def sink_seg(store, run_kgs, starts, ends, keys, values, ts):
+        for kg, a, z in zip(run_kgs, starts, ends):
+            store[kg]["n"] = store[kg].get("n", 0) + (z - a)
+        return None, None
+
+    def sink_jit(state, run_kgs, starts, ends, keys, values, ts):
+        return {"n": jx.count_runs(state["n"], run_kgs, starts, ends)}, None, None
+
+    t = Topology()
+    t.add_operator(OperatorSpec("src", None, num_keygroups=kgs, is_source=True, schema=schema))
+    prev = "src"
+    for i in range(depth - 1):
+        fn, fn_seg, fn_jit, kmap = stage(17 * (i + 1))
+        t.add_operator(OperatorSpec(
+            f"stage{i}", fn, num_keygroups=kgs, fn_seg=fn_seg, fn_jit=fn_jit,
+            jit_fusible=True, jit_key_map=kmap, state_schema=count, schema=schema,
+            out_schema=schema,
+        ))
+        t.connect(prev, f"stage{i}")
+        prev = f"stage{i}"
+    t.add_operator(OperatorSpec(
+        "sink", sink, num_keygroups=kgs, is_sink=True, fn_seg=sink_seg, fn_jit=sink_jit,
+        jit_fusible=True, state_schema=count, schema=schema,
+    ))
+    t.connect(prev, "sink")
+    return t
+
+
+def record_batches(count: int, size: int, seed: int) -> list:
+    """``count`` record batches of ``size`` tuples: keys uniform in
+    [0, 10^6), ``a`` in [0, 1000), ``b`` in [0, 1), as the benchmark's
+    ``_record_batch`` makes them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(count):
+        values = np.empty(size, dtype=REC_FIELDS)
+        values["a"] = rng.integers(0, 1_000, size=size)
+        values["b"] = rng.random(size)
+        out.append((rng.integers(0, 1_000_000, size=size), values, np.full(size, float(t))))
+    return out
+
+
+def ss_result(eng) -> dict:
+    """Every field ``tests/test_superstep.py::_result`` pins (arrivals and
+    usage read before ``end_period`` zeroes them), on the host."""
+    arrivals, usage = eng._arrivals.copy(), eng._cpu_usage.copy()
+    snap = eng.end_period()
+    m = eng.metrics
+    return {
+        "metrics": [getattr(m, f) for f in ("processed_tuples", "emitted_tuples", "sink_tuples",
+                                            "cross_node_tuples", "intra_node_tuples",
+                                            "dropped_credits")],
+        "sink_outputs": list(m.sink_outputs),
+        "states": state_bytes(eng),
+        "pair_src": snap.out_pairs.src,
+        "pair_dst": snap.out_pairs.dst,
+        "pair_rate": snap.out_pairs.rate,
+        "arrivals": arrivals,
+        "usage": usage,
+        "queue_costs": eng.queue_costs(),
+        "alloc": eng.router.table.copy(),
+    }
+
+
+def check_same(what: str, a: dict, b: dict) -> None:
+    bad = [f for f in a if not (np.array_equal(a[f], b[f]) if isinstance(a[f], np.ndarray)
+                                else a[f] == b[f])]
+    check(not bad, f"{what}: {bad} differ")
+
+
+def same_tensors(a, b) -> bool:
+    """Structure equal and every tensor ``torch.equal`` (dtype included)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tensors(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def run_superstep(dev, card: str, *, batch: int = BATCH, kgs: int = KGS, nodes: int = NODES,
+                  k: int = SS_K, fused_ticks: int = SS_FUSED_TICKS, migrate_kg=SS_MIGRATE_KG):
+    """Phase 3s: fused ticks and K-tick scans of the record pipeline against
+    the card's ``.jit()`` engine, the captured scan against its eager loop,
+    the routing kernels inside the graph against their plain versions, and
+    everything under the sync debug mode once more."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import Engine, ExecutionConfig
+    from repro_torch.kernels.keygroup_partition import fold_keys64
+    from repro_torch.kernels.keygroup_partition.ref import keygroup_partition_ref
+    from repro_torch.kernels.radix_sort.ref import bucket_argsort_ref
+
+    def make(config, key_map=True):
+        eng = Engine(record_pipeline(kgs, SS_DEPTH, key_map=key_map), nodes, config=config,
+                     service_rate=1e12, seed=SEED, collect_sinks=False, device=dev)
+        eng.backpressure.full_credit = 2 * batch  # admit whole batches
+        return eng
+
+    def drain(eng):
+        n = 0
+        while any(eng.queue_costs()):
+            eng.tick()
+            n += 1
+        torch.cuda.synchronize()
+        return n
+
+    batches = record_batches(k, batch, SEED + 5)
+    res = {"card": card}
+
+    # (a) fused tick() against the classic .jit() tick, with a migration.
+    fused = []  # (seconds, processed tuples, host syncs) per non-empty fused tick
+    blobs = {}
+    dst = None
+    for label in ("jit", "superstep"):
+        eng = make(ExecutionConfig.superstep() if label == "superstep" else ExecutionConfig.jit())
+        if label == "superstep":
+            rt = eng._superstep_rt()
+            inner = rt.try_fused_tick
+
+            def timed(eng=eng, inner=inner):
+                m = eng.metrics
+                busy = any(eng.queue_costs())
+                t0, p0, s0 = time.perf_counter(), m.processed_tuples, m.jit_host_syncs
+                ok = inner()
+                if ok and busy:
+                    fused.append((time.perf_counter() - t0, m.processed_tuples - p0,
+                                  m.jit_host_syncs - s0))
+                return ok
+
+            rt.try_fused_tick = timed
+        blobs[label] = []
+        dst = (eng.router.node_of(migrate_kg) + 1) % nodes
+        for t in range(fused_ticks):
+            if t == 2:
+                eng.redirect(migrate_kg, dst)
+            eng.push_source("src", *batches[t])
+            eng.tick()
+            if t == 3:
+                blobs[label].append(eng.serialize(migrate_kg))
+                eng.install(migrate_kg, dst, blobs[label][-1])
+        drain(eng)
+        res.setdefault("a", {})[label] = ss_result(eng)
+        if label == "superstep":
+            def two_ticks(eng=eng):
+                for bt in batches[fused_ticks : fused_ticks + 2]:
+                    eng.push_source("src", *bt)
+                    eng.tick()
+
+            res["fused_profile"] = host_profile_call(two_ticks)
+        del eng
+    check_same("(a) fused ticks vs .jit()", res["a"]["superstep"], res["a"]["jit"])
+    check(blobs["jit"] and blobs["superstep"] == blobs["jit"],
+          "(a) migration blobs differ from .jit()'s")
+    check(len(fused) >= fused_ticks and {s for _, _, s in fused} == {1},
+          f"(a) host syncs per fused tick {[s for _, _, s in fused]}, not one each")
+    fused_s = sum(s for s, _, _ in fused)
+    res["fused_tick"] = dict(ticks=len(fused), seconds=fused_s,
+                             tuples_per_s=sum(p for _, p, _ in fused) / fused_s)
+    del res["a"]
+    log(f"[engine/superstep] (a) {len(fused)} fused ticks + a migration == .jit() (every "
+        f"pinned field, blob bytes), one host sync each; fused tick() "
+        f"{res['fused_tick']['tuples_per_s']:.0f} processed tuples/s; host cProfile of 2 more "
+        f"fused ticks, cumulative s (calls) {res['fused_profile']}; {card}")
+
+    # (b) run_supersteps(K) against .jit() ticked over the same K batches.
+    jit = make(ExecutionConfig.jit())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bt in batches:
+        jit.push_source("src", *bt)
+        jit.tick()
+    drained = drain(jit)
+    jit_s = time.perf_counter() - t0
+    res["jit"] = dict(ticks=k + drained, seconds=jit_s,
+                      tuples_per_s=jit.metrics.processed_tuples / jit_s,
+                      compile_seconds=jit._jit.compile_seconds)
+    want = ss_result(jit)
+    del jit
+    log(f"[engine/superstep] .jit(): {k} ticks + {drained} drain ticks in {jit_s:.3f} s = "
+        f"{res['jit']['tuples_per_s']:.0f} processed tuples/s; {card}")
+    for mode in ("static", "device"):
+        eng = make(ExecutionConfig.superstep(), key_map=mode == "static")
+        m = eng.metrics
+        rt = eng._superstep_rt()
+        check(rt.plan.static_route == (mode == "static"), f"(b) plan's route is not {mode}")
+        s0 = m.jit_host_syncs
+        t0 = time.perf_counter()
+        eng.run_supersteps(batches)
+        first_s = time.perf_counter() - t0
+        check(m.jit_host_syncs - s0 == 1, f"(b) {mode}: {m.jit_host_syncs - s0} host syncs a scan")
+        drain(eng)
+        check_same(f"(b) run_supersteps ({mode} routing) vs .jit()", ss_result(eng), want)
+        scan = rt.last_scan
+        # Steady state: the second call replays the graph (staging and the
+        # fold included, as the reference's row times its scan).
+        p0, s0, c0, b0 = m.processed_tuples, m.jit_host_syncs, m.host_device_copies, \
+            m.host_device_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_supersteps(batches)
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        row = dict(first_call_s=first_s, warmup_s=scan.warmup_seconds,
+                   capture_s=scan.capture_seconds, scan_s=scan_s,
+                   tuples_per_s=(m.processed_tuples - p0) / scan_s,
+                   source_tuples_per_s=k * batch / scan_s,
+                   host_syncs=m.jit_host_syncs - s0, copies=m.host_device_copies - c0,
+                   copy_bytes=m.host_device_bytes - b0, graph_launches=scan.graph_launches)
+        check(row["host_syncs"] == 1, f"(b) {mode}: {row['host_syncs']} host syncs a scan")
+        drain(eng)
+        # (c) the replay against the same loop run eagerly on its inputs.
+        eager = scan.body()
+        check(same_tensors(scan.outs, eager),
+              f"(c) {mode}: the captured replay differs from the eager K-step loop")
+        if mode == "device":
+            # (d) the routing kernels inside the graph against their plain
+            # versions, on the last step's hops; the check must reject two
+            # equal codes swapped in an order.
+            routing = ("keygroup_partition", "radix_sort")
+            check(all(scan.graph_launches.get(n) == k * (SS_DEPTH - 1) for n in routing),
+                  f"(d) graph launches {scan.graph_launches}, not {k * (SS_DEPTH - 1)} each")
+            for hop, (ok, comp, dst_ids, order) in enumerate(scan.outs["taps"]):
+                ref_ids, _ = keygroup_partition_ref(fold_keys64(ok), kgs)
+                check(torch.equal(dst_ids, ref_ids), f"(d) hop {hop}: key groups differ")
+                ref_order = bucket_argsort_ref(comp, nodes * kgs + 1)
+                check(torch.equal(order, ref_order), f"(d) hop {hop}: order differs")
+            sorted_codes = comp[order]
+            i = int(torch.nonzero(sorted_codes[1:] == sorted_codes[:-1])[0])
+            faulty = order.clone()
+            faulty[[i, i + 1]] = order[[i + 1, i]]
+            check(not torch.equal(faulty, ref_order), "(d) the order check passes a swap of "
+                  "two equal codes")
+            del eager, ref_ids, ref_order, faulty
+        # The busy share: one more scan under torch.profiler, its device
+        # time over the unprofiled scan's wall time.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.run_supersteps(batches)
+            torch.cuda.synchronize()
+        rows = device_kernels(prof)
+        busy = sum(r[0] for r in rows) / 1e6
+        row.update(busy_s=busy, busy_share=busy / scan_s if rows else None,
+                   top=[(kname, round(us / 1e3, 3), n) for us, kname, n in rows[:6]])
+        drain(eng)
+        row["host_profile"] = host_profile_call(lambda: eng.run_supersteps(batches))
+        drain(eng)
+        # The graph alone, by CUDA events.
+        row["replay_ms"] = cuda_ms(lambda i: scan.graph.replay(), 5)
+        if mode == "static":
+            # (e) a scan (replayed) and fused ticks under the sync debug mode.
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.run_supersteps(batches)
+                eng.push_source("src", *batches[0])
+                drain(eng)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        row["replays"] = scan.replays
+        res[mode] = row
+        share = row["busy_share"]
+        log(f"[engine/superstep] (b) {mode} routing: run_supersteps({k}) == .jit() (every pinned "
+            f"field), 1 host sync a scan; first call {first_s:.3f} s (warm-up "
+            f"{scan.warmup_seconds:.3f} s, capture {scan.capture_seconds:.3f} s); timed scan "
+            f"{scan_s:.4f} s = {row['tuples_per_s']:.0f} processed tuples/s "
+            f"({row['source_tuples_per_s']:.0f} source tuples/s), vs_jit "
+            f"{row['tuples_per_s'] / res['jit']['tuples_per_s']:.2f}; replay alone "
+            f"{row['replay_ms']:.3f} ms; device busy {busy * 1e3:.3f} ms ("
+            + ("not measured" if share is None else f"{100 * share:.3f} %")
+            + f"); {row['copies']} copies, {row['copy_bytes']} bytes; graph launches per "
+            f"replay {scan.graph_launches}; top device events (ms, count) {row['top']}; host "
+            f"cProfile of one more scan, cumulative s (calls) {row['host_profile']}; "
+            f"(c) replay == eager loop" + ("; (d) routing in the graph == plain versions, "
+                                           "planted swap rejected" if mode == "device" else
+                                           "; (e) no undeclared sync") + f"; {card}")
+        del eng, scan
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["vs_jit"] = res["static"]["tuples_per_s"] / res["jit"]["tuples_per_s"]
     return res
 
 
@@ -2237,6 +2608,14 @@ def main() -> int:
         (engine, controller), _ = drive(routing, engine_paths)
         gc.collect()
         torch.cuda.empty_cache()
+        superstep, counts = drive(routing, run_superstep, dev, card)
+        superstep["launches"] = {name: counts[name] for name in routing}
+        log(f"[engine/superstep] phase 3s routing launches (wrapper counts: eager launches "
+            f"and kernels recorded into graphs) {superstep['launches']}; replays of the "
+            f"device-routed scan {superstep['device']['replays']} x "
+            f"{superstep['device']['graph_launches']}")
+        gc.collect()
+        torch.cuda.empty_cache()
 
         lm, served = {}, {}
         for spec in LM_RUNS:
@@ -2244,7 +2623,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"[summary] engine {engine}; controller {controller}; lm {lm}; serve {served}; "
+    log(f"[summary] engine {engine}; controller {controller}; superstep {superstep}; "
+        f"lm {lm}; serve {served}; "
         f"{time.perf_counter() - t_start:.1f} s total")
     rows = [dict(name=name, launches=launches[name], **kernels[name]) for name in kernels]
     print(json.dumps({"kernels": rows}))

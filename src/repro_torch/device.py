@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import time
 
 import torch
 
@@ -44,3 +45,38 @@ def declared_sync(device: torch.device):
     finally:
         if mode:
             torch.cuda.set_sync_debug_mode(mode)
+
+
+def capture_graph(fn, stream: "torch.cuda.Stream"):
+    """Capture ``fn()`` into a CUDA graph on ``stream``.
+
+    One eager warm-up call on ``stream`` comes first: it builds what the
+    kernel wrappers keep per (device, stream), such as keygroup_partition's
+    scratch words, so that nothing is allocated or zeroed for the first time
+    inside the graph.  Warm-up and capture run as a declared sync (the
+    capture synchronizes the device).  Returns the graph, the outputs of the
+    captured call (the graph's static outputs, which each replay
+    overwrites) and ``{"warmup_seconds", "capture_seconds", "launches"}``,
+    where ``launches`` are the kernel launches the wrappers recorded into
+    the graph: each replay makes them again without counting them.  A
+    capture that fails raises.
+    """
+    from repro_torch.kernels import launch_counts
+
+    dev = stream.device
+    with declared_sync(dev):
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph, stream=stream):
+            out = fn()
+        launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+    info = dict(warmup_seconds=t1 - t0, capture_seconds=time.perf_counter() - t1,
+                launches=launches)
+    return graph, out, info

@@ -5,9 +5,12 @@ topology over logical nodes with routing on the card (see
 :mod:`repro_torch.engine.executor`), and :class:`Controller` runs
 Algorithm 1 against it once per statistics period.  ``ExecutionConfig.jit()``
 runs the compiled tier's ``fn_jit`` bodies over device state columns
-(:mod:`repro_torch.engine.jitexec`, declared through :class:`StateSchema`).
-The fused superstep, checkpoints and the multi-worker runtime are not
-ported yet (see :mod:`repro_torch.engine.config`).
+(:mod:`repro_torch.engine.jitexec`, declared through :class:`StateSchema`),
+and ``ExecutionConfig.superstep()`` fuses whole ticks of a linear
+``jit_fusible`` chain on the device (:mod:`repro_torch.engine.superstep`;
+``Engine.run_supersteps`` runs K of them per host read).  Checkpoints and
+the multi-worker runtime are not ported yet (see
+:mod:`repro_torch.engine.config`).
 """
 
 from repro_torch.engine.config import ExecutionConfig

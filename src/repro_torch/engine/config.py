@@ -15,13 +15,17 @@ preset                  meaning
 ``.split(d)``           ``.typed()`` plus hot-key splitting at degree ``d``
 ``.jit()``              ``.typed()`` plus the compiled tier (``fn_jit``
                         bodies over device state columns, single device)
+``.superstep()``        ``.jit()`` plus whole-tick fusion of a linear
+                        ``jit_fusible`` chain on the device, and K-tick
+                        scans (``Engine.run_supersteps``) captured into a
+                        CUDA graph on the card
 ======================  =====================================================
 
 Every preset routes through the card's kernels.  The reference's other
 tiers raise :class:`NotImplementedError` naming the ROADMAP.md item (queue
-1) that brings them: ``.superstep()`` (fused superstep), ``.workers(n)``
-(multi-worker runtime), a ``checkpoint`` policy (jax-free checkpoints) and
-``.jit(mesh=...)`` (item 11, mesh and dry-run tooling).
+1) that brings them: ``.workers(n)`` (multi-worker runtime), a
+``checkpoint`` policy (jax-free checkpoints), and ``.jit(mesh=...)`` and
+``.superstep(mesh=...)`` (item 11, mesh and dry-run tooling).
 """
 
 from __future__ import annotations
@@ -37,6 +41,14 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+def _no_mesh(preset: str, mesh: Any, mesh_axis: Optional[str]) -> None:
+    if mesh is not None or mesh_axis is not None:
+        raise NotImplementedError(
+            f"ExecutionConfig.{preset}(mesh=...) is not ported to repro_torch yet: "
+            "ROADMAP.md queue 1, item 11 (mesh and dry-run tooling)"
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecutionConfig:
     """How a topology executes: queue layout and operator tier."""
@@ -47,6 +59,9 @@ class ExecutionConfig:
     #: The compiled tier: operators declaring ``fn_jit`` run their
     #: contiguous segments over device state columns.
     use_fn_jit: bool = False
+    #: Whole-tick fusion of a linear ``jit_fusible`` chain on the device
+    #: (the preset is :meth:`superstep`; requires ``use_fn_jit``).
+    use_superstep: bool = False
     #: Hot-key splitting (``split_degree >= 2`` enables
     #: ``Engine.split_keygroup``; 0 = disabled, no reserve slots).
     split_degree: int = 0
@@ -62,6 +77,11 @@ class ExecutionConfig:
             raise ValueError(
                 "use_fn_jit requires queue_impl='soa' and use_schema=True "
                 "(the jit tier executes native columns over SoA segments)"
+            )
+        if self.use_superstep and not self.use_fn_jit:
+            raise ValueError(
+                "use_superstep requires use_fn_jit=True (the fused tick "
+                "compiles fn_jit bodies)"
             )
         if self.split_degree:
             if self.split_degree < 2:
@@ -109,16 +129,17 @@ class ExecutionConfig:
     @classmethod
     def jit(cls, *, mesh: Any = None, mesh_axis: Optional[str] = None) -> "ExecutionConfig":
         """``.typed()`` plus the compiled ``fn_jit`` tier, on one device."""
-        if mesh is not None or mesh_axis is not None:
-            raise NotImplementedError(
-                "ExecutionConfig.jit(mesh=...) is not ported to repro_torch yet: "
-                "ROADMAP.md queue 1, item 11 (mesh and dry-run tooling)"
-            )
+        _no_mesh("jit", mesh, mesh_axis)
         return cls(use_fn_jit=True)
 
     @classmethod
-    def superstep(cls, **_kw) -> "ExecutionConfig":
-        raise _not_ported("ExecutionConfig.superstep()", "Fused superstep")
+    def superstep(
+        cls, *, mesh: Any = None, mesh_axis: Optional[str] = None
+    ) -> "ExecutionConfig":
+        """``.jit()`` plus whole-tick fusion into device programs, on one
+        device."""
+        _no_mesh("superstep", mesh, mesh_axis)
+        return cls(use_fn_jit=True, use_superstep=True)
 
     @classmethod
     def workers(cls, n: int, **_kw) -> "ExecutionConfig":
@@ -136,6 +157,8 @@ class ExecutionConfig:
             parts.append("schema")
         if self.use_fn_jit:
             parts.append("jit")
+        if self.use_superstep:
+            parts.append("superstep")
         if self.split_degree:
             parts.append(f"split{self.split_degree}")
         return "+".join(parts)

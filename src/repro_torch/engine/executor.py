@@ -44,11 +44,18 @@ identical to inline execution, and per-run fallbacks force-flush the
 deferred batch first so state updates stay in drain order), exactly as in
 the reference's executor.
 
+The fused superstep (``ExecutionConfig.superstep()``,
+:mod:`repro_torch.engine.superstep`) goes further for a linear chain of
+``jit_fusible`` operators: each tick runs every operator and routes its
+outputs on the card (one read per tick), and :meth:`Engine.run_supersteps`
+runs K ticks as one loop, captured into a CUDA graph on the card (one read
+per K ticks).
+
 ``device="cpu"`` runs the identical path with the kernels' plain PyTorch
 versions on CPU tensors; it is bit-identical to the reference's numpy
 engine, which the conformance tests pin (the compiled tier within the
-reference's documented float tolerance).  The reference's fused superstep
-and periodic checkpoints are not part of the port yet.
+reference's documented float tolerance).  Periodic checkpoints are not part
+of the port yet.
 """
 
 from __future__ import annotations
@@ -275,6 +282,12 @@ class Engine:
         ]
         self._jit = None  # JitRuntime, built on first fn_jit execution
         self._jit_on = any(f is not None for f in self._op_fn_jit)
+        # ExecutionConfig.superstep() fuses whole ticks of an eligible linear
+        # fn_jit chain on the device (repro_torch.engine.superstep).  With
+        # zero fn_jit operators the flag degrades to a no-op: the engine
+        # never imports the jit tier or the superstep runtime.
+        self.superstep = config.use_superstep and self._jit_on
+        self._superstep = None  # SuperstepRuntime, built on first tick
         # Deferred jit segments of the current tick: the drain collects them
         # (accounting immediately, placeholder cells hold output order) and
         # one batched call per operator executes at end of tick — the BSP
@@ -636,6 +649,31 @@ class Engine:
         m.sort_kernel_batches[op] = m.sort_kernel_batches.get(op, 0) + 1
         return order
 
+    def _superstep_rt(self):
+        """The fused-superstep runtime, built on first use."""
+        rt = self._superstep
+        if rt is None:
+            from repro_torch.engine.superstep import SuperstepRuntime
+
+            rt = self._superstep = SuperstepRuntime(self)
+        return rt
+
+    def run_supersteps(self, batches) -> int:
+        """Run K source batches as K fused supersteps with one host read.
+
+        Steady-state throughput mode (on the card, one CUDA graph replay
+        for all K ticks); requires ``ExecutionConfig.superstep()`` and
+        drained queues — see :meth:`repro_torch.engine.superstep.
+        SuperstepRuntime.run_supersteps` for the exact contract and which
+        statistics it records.
+        """
+        if not self.superstep:
+            raise RuntimeError(
+                "run_supersteps requires an engine built with "
+                "ExecutionConfig.superstep() (superstep=True)"
+            )
+        return self._superstep_rt().run_supersteps(batches)
+
     def _record_admission(self, node: int, admitted: int) -> None:
         """Queueing-latency estimate at admission: work ahead / service speed."""
         budget = self.service_rate * self._capacity_list[node]
@@ -649,7 +687,16 @@ class Engine:
         are routed once per downstream operator at the end of the tick, so
         each (op, key group) receives at most one segment push per tick.  CPU
         charges for the drained runs are scattered once, at the end.
+
+        Under ``ExecutionConfig.superstep()`` the fused runtime first tries
+        to run the whole tick on the device; any tick it cannot express
+        falls back here after materializing its device-pending columns.
         """
+        if self.superstep:
+            rt = self._superstep_rt()
+            if rt.try_fused_tick():
+                return
+            rt.flush_to_host()
         self.metrics.ticks += 1
         self._ticks_this_period += 1
         drained_kgs: list[int] = []
@@ -1033,9 +1080,8 @@ class Engine:
             else:
                 outs.append(item)
 
-    def _jit_exec(self, op, kgs, starts, ends, keys, values, ts):
-        """Hand one contiguous segment to the compiled tier (the runtime is
-        built on the first fn_jit execution)."""
+    def _jit_runtime(self):
+        """The compiled tier's runtime, built on the first fn_jit execution."""
         jrt = self._jit
         if jrt is None:
             from repro_torch.engine.jitexec import JitRuntime
@@ -1043,7 +1089,11 @@ class Engine:
             jrt = self._jit = JitRuntime(
                 self.topology, self.store, self.metrics, self._kg_op, device=self.device
             )
-        return jrt.execute(op, kgs, starts, ends, keys, values, ts)
+        return jrt
+
+    def _jit_exec(self, op, kgs, starts, ends, keys, values, ts):
+        """Hand one contiguous segment to the compiled tier."""
+        return self._jit_runtime().execute(op, kgs, starts, ends, keys, values, ts)
 
     def _process(self, node: int, op: int, kg: int, keys, values, ts) -> None:
         metrics = self.metrics
@@ -1211,6 +1261,10 @@ class Engine:
         anything the router buffered during the migration, so the key
         group's outstanding tuples resume at the destination in FIFO order.
         """
+        if self._superstep is not None:
+            # Shadow segments hold no arrays to extract: materialize the
+            # fused runtime's device pendings before touching the queues.
+            self._superstep.flush_to_host()
         src = self.router.node_of(keygroup)
         self.router.redirect(keygroup, dst)
         batches, _removed = self._queues[src].extract_keygroup(keygroup)
@@ -1218,6 +1272,11 @@ class Engine:
             self._backlog.setdefault(keygroup, []).extend(batches)
 
     def serialize(self, keygroup: int) -> bytes:
+        if self._superstep is not None:
+            # The key group's backlog may reference device-pending columns;
+            # flushing first keeps the envelope byte-identical to the
+            # classic engine's at any superstep boundary.
+            self._superstep.flush_to_host()
         if self._jit is not None:
             # σ_k may live in jit-tier device columns: materialize the dict
             # (insertion order included) so the blob is the oracle's pickle.
@@ -1519,6 +1578,10 @@ class Engine:
 
         Returns the orphaned key groups; the controller reallocates them.
         """
+        if self._superstep is not None:
+            # clear() below must see real segments, and surviving nodes'
+            # shadow segments must not dangle on dropped device pendings.
+            self._superstep.flush_to_host()
         self.alive[node] = False
         self._queues[node].clear()
         return self.router.keygroups_on(node)

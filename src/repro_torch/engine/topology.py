@@ -351,17 +351,19 @@ class OperatorSpec:
         replicas' σ back into the parent.  Exact-arithmetic payloads
         (ints) stay bit-exact under splitting; float running sums are
         reordered by construction — see docs/workloads.md.
-      jit_key_map: optional host-evaluable key transform: the author's claim
-        that ``fn_jit`` emits keys equal to ``jit_key_map(input_keys)``
+      jit_key_map: optional key transform: the author's claim that
+        ``fn_jit`` emits keys equal to ``jit_key_map(input_keys)``
         element-wise, in input order (pass ``lambda keys: keys`` for
-        pass-through operators).  When every non-terminal fused operator
-        declares one, the superstep scheduler can evaluate the whole routing
-        schedule (hashes, stable radix permutations, per-edge count
-        matrices) on the host ahead of the K-tick scan, leaving the scan
+        pass-through operators).  The port's contract: like ``fn_jit``
+        bodies it takes and returns a **tensor** of keys on the engine's
+        device (the reference passes numpy arrays), so the routing schedule
+        is computed on the card.  When every non-terminal fused operator
+        declares one, ``Engine.run_supersteps`` evaluates the whole
+        routing schedule (hashes, stable radix permutations, per-edge count
+        matrices) while staging, ahead of the K-tick scan, leaving the scan
         body sort-free; chains with an undeclared map still fuse but sort
-        on-device.  Must be wrap-consistent with the device body (numpy and
-        jax integer arithmetic overflow identically, so plain column math
-        qualifies).
+        inside the scan.  Must be wrap-consistent with the device body
+        (plain column math on the same dtype qualifies).
     """
 
     name: str
@@ -379,7 +381,7 @@ class OperatorSpec:
     fn_jit: Optional[JitFn] = None  # compiled tier (see JitFn / jitexec)
     state_schema: Optional[StateSchema] = None
     jit_fusible: bool = False  # superstep-fusible fn_jit (see above)
-    jit_key_map: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    jit_key_map: Optional[Callable] = None  # key tensor -> key tensor (see above)
     merge_state: Optional[Callable[[dict, dict], dict]] = None  # split-mergeable
 
 

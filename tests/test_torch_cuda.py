@@ -16,7 +16,12 @@ the card against ``device="cpu"``.  The compiled tier's
 ``keyed_running_sum`` is held against its CPU run at 2^16 tuples through
 table growth, and a ``.jit()`` engine ticks under
 ``torch.cuda.set_sync_debug_mode("error")``: only its declared reads (the
-runtime's one per call, routing's downloads) may synchronize.  Without a
+runtime's one per call, routing's downloads) may synchronize.  The fused
+superstep (a record pipeline, both routing modes) equals the card's
+``.jit()`` engine through fused ticks, a migration and K-tick scans; its
+captured scan replays bit-identical to the same loop run eagerly, with both
+routing kernels inside the graph held against their plain versions; and
+its ticks and scans raise nothing under the sync debug mode.  Without a
 card every test here skips.  On
 the card: ``python -m pytest -m gpu tests/test_torch_cuda.py`` (this file
 imports neither jax nor the reference package).
@@ -363,6 +368,217 @@ def test_jit_engine_tick_has_no_undeclared_sync(cuda):
 
 ATTN_TOL = {torch.float32: dict(atol=3e-5, rtol=3e-5),
             torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+
+
+# ---------------------------------------------------------------------------
+# The fused superstep on the card.
+# ---------------------------------------------------------------------------
+
+_REC = np.dtype([("a", "i8"), ("b", "f8")])
+
+
+def _record_chain(kgs, *, key_map):
+    """The benchmark's record pipeline at depth 3 (src → two record stages
+    → sink), the sink emitting ``keys * 2`` so sink outputs come back too;
+    ``key_map`` declares the stages' ``jit_key_map`` (the static schedule)."""
+    from repro_torch.engine import jitexec as jx
+    from repro_torch.engine.topology import (
+        OperatorSpec,
+        Schema,
+        StateField,
+        StateSchema,
+        Topology,
+    )
+
+    schema = Schema.record([("a", "i8"), ("b", "f8")])
+    count = StateSchema((StateField("n", "scalar", dtype=np.int64, py=int),))
+
+    def seg(shift):
+        def fn_seg(store, run_kgs, starts, ends, keys, values, ts):
+            for kg, a, z in zip(run_kgs, starts, ends):
+                store[kg]["n"] = store[kg].get("n", 0) + (z - a)
+            out = np.empty(len(values), dtype=_REC)
+            out["a"], out["b"] = values["a"], values["b"] + values["a"]
+            return (keys * 2 if shift is None else keys + shift, out, ts), None
+
+        def fn_jit(state, run_kgs, starts, ends, keys, values, ts):
+            out = {"a": values["a"], "b": values["b"] + values["a"]}
+            k = keys * 2 if shift is None else keys + shift
+            return {"n": jx.count_runs(state["n"], run_kgs, starts, ends)}, (k, out, ts), None
+
+        return fn_seg, fn_jit
+
+    t = Topology()
+    t.add_operator(OperatorSpec("src", None, num_keygroups=kgs, is_source=True, schema=schema))
+    for name, shift in (("stage0", 17), ("stage1", 34), ("sink", None)):
+        fn_seg, fn_jit = seg(shift)
+        kmap = (lambda k, s=shift: k + s) if key_map and shift is not None else None
+        t.add_operator(OperatorSpec(
+            name, lambda st, k, v, ts: (st, None), num_keygroups=kgs, fn_seg=fn_seg,
+            fn_jit=fn_jit, jit_fusible=True, jit_key_map=kmap, state_schema=count,
+            schema=schema, out_schema=schema, is_sink=shift is None,
+        ))
+    t.connect("src", "stage0")
+    t.connect("stage0", "stage1")
+    t.connect("stage1", "sink")
+    return t
+
+
+def _record_batches(count, n, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(count):
+        values = np.empty(n, dtype=_REC)
+        values["a"] = rng.integers(0, 1000, size=n)
+        values["b"] = rng.random(n)
+        out.append((rng.integers(0, 10**6, size=n), values, np.full(n, float(t))))
+    return out
+
+
+def _ss_engine(dev, superstep, key_map=True, kgs=64):
+    from repro_torch.engine import Engine, ExecutionConfig
+
+    cfg = ExecutionConfig.superstep() if superstep else ExecutionConfig.jit()
+    eng = Engine(_record_chain(kgs, key_map=key_map), 8, service_rate=1e12, seed=0,
+                 config=cfg, device=dev)
+    eng.backpressure.full_credit = 1 << 20
+    return eng
+
+
+def _ss_result(eng):
+    arrivals, usage = eng._arrivals.tolist(), eng._cpu_usage.tolist()
+    snap = eng.end_period()
+    fields = ("processed_tuples", "emitted_tuples", "sink_tuples", "cross_node_tuples",
+              "intra_node_tuples", "dropped_credits")
+    return {
+        "metrics": {f: getattr(eng.metrics, f) for f in fields},
+        "sink_outputs": list(eng.metrics.sink_outputs),
+        "states": [pickle.dumps(s) for _, s in eng.store.items()],
+        "pairs": (snap.out_pairs.src.tolist(), snap.out_pairs.dst.tolist(),
+                  snap.out_pairs.rate.tolist()),
+        "arrivals": arrivals,
+        "usage": usage,
+        "queue_costs": eng.queue_costs(),
+        "alloc": eng.router.table.tolist(),
+    }
+
+
+def _drained(eng):
+    while any(eng.queue_costs()):
+        eng.tick()
+
+
+@pytest.mark.parametrize("route", ["device", "static"])
+def test_superstep_engine_on_card_matches_jit_engine(cuda, route):
+    """Fused ticks with a migration mid-run, then a K-tick scan (captured
+    and replayed), against the card's ``.jit()`` engine on the same
+    batches: every pinned field equal, the migration blob bytes identical,
+    one host sync per fused tick and per scan."""
+    key_map = route == "static"
+    ss, jit = _ss_engine(cuda, True, key_map), _ss_engine(cuda, False, key_map)
+    rt = ss._superstep_rt()
+    fused_syncs = []
+    fused_tick = rt.try_fused_tick
+
+    def counted():
+        syncs, busy = ss.metrics.jit_host_syncs, any(ss.queue_costs())
+        fused = fused_tick()
+        if fused and busy:
+            fused_syncs.append(ss.metrics.jit_host_syncs - syncs)
+        return fused
+
+    rt.try_fused_tick = counted
+    batches = _record_batches(8, 3000, seed=2)
+    blobs = {}
+    for eng in (ss, jit):
+        blobs[eng] = []
+        for t, (k, v, ts) in enumerate(batches):
+            if t == 2:
+                eng.redirect(70, 3)
+            eng.push_source("src", k, v, ts)
+            eng.tick()
+            if t == 3:
+                blobs[eng].append(eng.serialize(70))
+                eng.install(70, 3, blobs[eng][-1])
+        _drained(eng)
+    assert blobs[ss] == blobs[jit]
+    # The migration's ticks fall back to the classic tick; every other tick
+    # fuses, with one host crossing each.
+    assert len(fused_syncs) >= 6 and set(fused_syncs) == {1}
+    scan_batches = _record_batches(5, 2500, seed=3)
+    for rep in range(2):  # the capture, then a replay
+        syncs = ss.metrics.jit_host_syncs
+        assert ss.run_supersteps(scan_batches) == 5
+        assert ss.metrics.jit_host_syncs - syncs == 1
+        _drained(ss)
+        for k, v, ts in scan_batches:
+            jit.push_source("src", k, v, ts)
+            jit.tick()
+        _drained(jit)
+    scan = ss._superstep.last_scan
+    assert scan.graph is not None and scan.replays == 2
+    a, b = _ss_result(ss), _ss_result(jit)
+    for field in a:
+        assert a[field] == b[field], field
+
+
+def _all_equal(a, b):
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_all_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_all_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("route", ["device", "static"])
+def test_superstep_replay_matches_eager_loop(cuda, route):
+    """The captured K-step loop, replayed, against the same loop run
+    eagerly on the same staged inputs: states, pendings, pair matrices and
+    sink outputs bit-identical.  With routing in the body both kernels run
+    inside the graph; the last step's ids and orders (the graph's outputs)
+    equal the kernels' plain versions."""
+    ss = _ss_engine(cuda, True, key_map=route == "static")
+    reset_launch_counts()
+    ss.run_supersteps(_record_batches(6, 4000, seed=5))
+    scan = ss._superstep.last_scan
+    graphed = scan.outs
+    eager = scan.body()
+    assert _all_equal(graphed, eager)
+    if route == "static":
+        assert not graphed["taps"] and not scan.graph_launches
+        return
+    assert scan.graph_launches["keygroup_partition"] == 6 * 2  # K steps x 2 hops
+    assert scan.graph_launches["radix_sort"] == 6 * 2
+    nodes = ss.num_nodes
+    for ok, comp, dst, order in graphed["taps"]:
+        ref_dst, _ = keygroup_partition_ref(fold_keys64(ok.cpu()), 64)
+        assert torch.equal(dst.cpu(), ref_dst)
+        ref_order = bucket_argsort_ref(comp.cpu(), nodes * 64 + 1)
+        assert torch.equal(order.cpu(), ref_order)
+
+
+def test_superstep_tick_and_scan_have_no_undeclared_sync(cuda):
+    """Fused ticks and scans (the first, captured, and a replay) under
+    ``set_sync_debug_mode("error")``: only declared reads synchronize."""
+    ss = _ss_engine(cuda, True, key_map=False)
+    batches = _record_batches(4, 2000, seed=7)
+    ss.push_source("src", *batches[0])
+    ss.tick()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k, v, ts in batches[1:]:
+            ss.push_source("src", k, v, ts)
+            ss.tick()
+        _drained(ss)
+        for _ in range(2):
+            ss.run_supersteps(batches)
+            _drained(ss)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ss._superstep.last_scan.replays == 2
+    assert ss.metrics.processed_tuples == 4 * (4 + 2 * 4) * 2000
 
 
 def _close(out, ref, dtype):

@@ -65,6 +65,7 @@ PORT_CONFIGS = {
     "seg": port_engine.ExecutionConfig.seg(),
     "oracle": port_engine.ExecutionConfig.oracle(),
     "jit": port_engine.ExecutionConfig.jit(),
+    "superstep": port_engine.ExecutionConfig.superstep(),
 }
 
 
@@ -167,6 +168,14 @@ def test_port_engine_matches_reference(job, scenario, config):
     assert port["metrics"]["sink_tuples"] > 0
     if scenario == "migrate":
         assert port["migration_blobs"]
+    if config == "superstep":
+        # No operator of jobs 2-3 is jit_fusible: nothing fuses, and the
+        # engine is the .jit() engine, counters included.
+        jit, _ = run_port_scenario(
+            *_port_factories(job), SCENARIOS[scenario], PORT_CONFIGS["jit"]
+        )
+        assert port == jit
+        assert eng._superstep is not None and eng._superstep.plan is None
     # Routed hops went through the kernels (plain versions here): every
     # operator of jobs 2-3 partitions by an integer key — routedelay's by a
     # column expression, which needs schema-typed batches; on object edges

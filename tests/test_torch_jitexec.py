@@ -257,7 +257,8 @@ _PIPE_STATE = StateSchema((StateField("n", "scalar", dtype=np.int64, py=int),))
 
 def port_pipeline_topo(kgs: int = 16) -> Topology:
     """``conformance.make_pipeline_topo`` on the port's classes, with the
-    torch jit bodies above (the numpy bodies copied)."""
+    torch jit bodies above (the numpy bodies copied); both jit operators
+    ``jit_fusible``, as the reference's."""
     scalar = Schema(np.dtype(np.float64))
 
     def mid_fn(state, keys, values, ts):
@@ -285,14 +286,14 @@ def port_pipeline_topo(kgs: int = 16) -> Topology:
     t.add_operator(
         OperatorSpec(
             "mid", mid_fn, num_keygroups=kgs, fn_seg=mid_seg, fn_jit=_pipe_mid_jit,
-            state_schema=_PIPE_STATE, schema=scalar, out_schema=scalar,
+            jit_fusible=True, state_schema=_PIPE_STATE, schema=scalar, out_schema=scalar,
         )
     )
     t.add_operator(
         OperatorSpec(
             "sink", sink_fn, num_keygroups=kgs, is_sink=True, fn_seg=sink_seg,
-            fn_jit=_pipe_sink_jit, state_schema=_PIPE_STATE, schema=scalar,
-            out_schema=scalar,
+            fn_jit=_pipe_sink_jit, jit_fusible=True, state_schema=_PIPE_STATE,
+            schema=scalar, out_schema=scalar,
         )
     )
     t.connect("src", "mid")
@@ -411,6 +412,9 @@ def port_fuzz_topology(spec: dict) -> Topology:
         if fj is not None and op["schema"] and (family == "scalar" or op["out_schema"]):
             kw["fn_jit"] = fj
             kw["state_schema"] = st
+            # The reference's superstep contract: strictly 1:1 bodies with
+            # scalar state and an unmapped partition key.
+            kw["jit_fusible"] = op["kind"] in ("rekey", "vshift", "project") and op["key"] == "id"
         t.add_operator(
             OperatorSpec(
                 f"op{i}", fn, num_keygroups=op["kgs"], fn_seg=seg,
@@ -597,8 +601,8 @@ def test_unported_tiers_raise_naming_their_items():
         cfg.jit(mesh=object())
     with pytest.raises(NotImplementedError, match="item 11"):
         jx.JitRuntime(port_pipeline_topo(4), None, None, None, device=CPU, mesh=object())
-    with pytest.raises(NotImplementedError, match="Fused superstep"):
-        cfg.superstep()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        cfg.superstep(mesh=object())
     with pytest.raises(NotImplementedError, match="Multi-worker runtime"):
         cfg.workers(2)
     with pytest.raises(NotImplementedError, match="Jax-free checkpoints"):

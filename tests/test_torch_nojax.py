@@ -4,7 +4,8 @@ neither jax nor anything of the reference package ``repro``.
 Pinned two ways: statically, over every import statement (top level or
 nested) in the port's sources and the chip smoke script; and at run time,
 by importing the package, running a small Real Job 3 (under ``.typed()``
-and under the compiled tier, ``.jit()``) and one SMOKE decode
+and under the compiled tier, ``.jit()``), fused ticks and a K-tick scan of
+the fused superstep (``repro_torch.engine.superstep``) and one SMOKE decode
 tick of the serve loop for a dense, a hybrid (RG-LRU + windowed attention)
 and a MoE config in a subprocess where ``import jax`` and ``import repro``
 fail.
@@ -66,6 +67,7 @@ import repro_torch.solver
 import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
 import repro_torch.models.moe, repro_torch.models.rglru
 import repro_torch.kernels.moe_gemm, repro_torch.kernels.rglru_scan
+import repro_torch.engine.superstep
 from repro_torch.data import StreamSpec, airline_stream, real_job_3
 from repro_torch.engine import Engine, ExecutionConfig
 engines = []
@@ -86,6 +88,31 @@ typed, jit = engines
 assert jit.metrics.jit_calls > 0 and jit.metrics.jit_host_syncs == jit.metrics.jit_calls
 assert jit.metrics.sink_tuples == typed.metrics.sink_tuples
 assert [list(s) for _, s in jit.store.items()] == [list(s) for _, s in typed.store.items()]
+from repro_torch.engine import jitexec as jx
+from repro_torch.engine.topology import OperatorSpec, Schema, StateField, StateSchema, Topology
+count = StateSchema((StateField("n", "scalar", dtype=np.int64, py=int),))
+scalar = Schema(np.dtype(np.float64))
+chain = Topology()
+chain.add_operator(OperatorSpec("src", None, num_keygroups=8, is_source=True, schema=scalar))
+for name, shift in (("mid", 17), ("sink", 0)):
+    chain.add_operator(OperatorSpec(
+        name, lambda st, k, v, t: (st, (k, v, t)), num_keygroups=8, jit_fusible=True,
+        fn_jit=lambda st, kg, s, e, k, v, t, d=shift: (
+            {"n": jx.count_runs(st["n"], kg, s, e)}, (k + d, v, t), None),
+        jit_key_map=(lambda k: k + 17) if shift else None, state_schema=count,
+        schema=scalar, out_schema=scalar, is_sink=name == "sink"))
+chain.connect("src", "mid")
+chain.connect("mid", "sink")
+fused = Engine(chain, 3, service_rate=1e9, device="cpu", config=ExecutionConfig.superstep())
+rng = np.random.default_rng(3)
+feed = [(rng.integers(0, 1000, 50), rng.random(50), np.zeros(50)) for _ in range(6)]
+fused.push_source("src", *feed[0])
+for _ in range(4):
+    fused.tick()
+fused.run_supersteps(feed[1:])
+for _ in range(3):
+    fused.tick()
+assert fused.metrics.sink_tuples == 300 and fused.metrics.jit_host_syncs > 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 try:
