@@ -76,6 +76,28 @@ error or mismatch:
    capture seconds, the replay alone (CUDA events), the device's busy share
    of the timed scan (``torch.profiler``), copies and bytes, host syncs,
    and the routing kernels' launches (wrapper counts, and per replay);
+3w. the supervised multi-worker runtime (``repro_torch.engine.cluster``) at
+   phase 3's size, in a fresh interpreter (``--workers``: the coordinator
+   forks card workers, so it makes no CUDA call until its pools are
+   closed): (a) ``.workers(4)`` driven in lockstep over 8 batches and the
+   drain, every field ``tests/conformance.py`` pins for ``+workers`` held
+   against the single-process card engine on the same batches (sink
+   outputs and their order, state bytes, counts, arrivals exactly;
+   kg_load and pair rates at rtol 1e-12, atol 1e-18) with (b) a key group
+   migrated from worker 0 to worker 3, its blob bytes equal; (c) a planted
+   non-contiguous node → worker map that (a)'s comparison must reject; (d)
+   phase 4's controller over ``.workers(2)``, its ``PeriodMetrics``,
+   snapshots, tables and states against the same plans on the
+   single-process card engine; (e) phase 4's setup over four supervised
+   workers with a checkpoint a period and a kill at period 2: one recovery,
+   the respawned worker launching both kernels, converged to the oracle
+   replayed from the checkpoint; (f) ``run_stream`` at 2 and 4 workers,
+   at 1 MiB lanes and at lanes for two ticks, beside the single-process
+   engine (tuples/s, ``w{n}_vs_single``, the exchange's transport counts,
+   the coordinator's ingest seconds, per-worker device round trips); (g)
+   the workers' launches folded into the kernels line, and the
+   coordinator's ``torch.cuda.is_initialized()`` False before its first
+   CUDA call;
 4. the ALBIC controller (``Controller.period()``) on Real Job 3 in the
    real-jobs benchmark's setup (anti-collocated start, ``max_migrations=10``,
    ``ser_cost=0.6``, ``service_rate=3000``) for 6 periods, under ``.typed()``
@@ -119,7 +141,7 @@ error or mismatch:
    per slot); the weights of the earlier models are freed first;
 
 then one JSON line listing the kernels with their launches on the paths
-that run them (phases 3, 3j, 3s and 4 for routing, 5-8 for the LM kernels), times,
+that run them (phases 3, 3j, 3s, 3w and 4 for routing, 5-8 for the LM kernels), times,
 bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
 and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
 without CUDA, and outside a checkout that holds ``src/repro_torch``.
@@ -129,7 +151,8 @@ host microseconds per call of the decode path's kernel wrappers
 (``host_us``), imported from SRC (default ``src``), so that two checkouts
 can be compared in one call.  ``--kernel-ms [SRC]`` likewise prints only
 keygroup_partition's and rglru_scan's phase-2 timings and yardsticks
-(``kernel_ms``).
+(``kernel_ms``).  ``--workers`` runs phase 3w alone (the full run starts it
+so, as a child, and relays its lines).
 """
 
 from __future__ import annotations
@@ -1779,16 +1802,11 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
 
     def build(cls, device):
         topo = real_job_3(keygroups_per_op=kgs)
-        alloc = np.zeros(topo.num_keygroups, dtype=np.int64)
-        for op in range(topo.num_operators):
-            base = topo.kg_base(op)
-            n_op = topo.operators[op].num_keygroups
-            alloc[base : base + n_op] = (np.arange(n_op) + op * (nodes // 2 + 1)) % nodes
         return cls(
             topo,
             nodes,
             config=config,
-            initial_alloc=alloc,
+            initial_alloc=ctl_alloc(topo, nodes),
             ser_cost=0.6,
             service_rate=3000.0,
             seed=SEED,
@@ -1876,6 +1894,566 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
         check(gpu.metrics.jit_calls > 0, "the .jit() controller engine made no jit call")
         res.update(moved_table_keygroups=moved_tables, jit_calls=gpu.metrics.jit_calls)
     return res
+
+
+# --------------------------------------------------------------------- phase 3w
+# The multi-worker runtime (repro_torch.engine.cluster) at phase 3's
+# deployment, run by ``python3 chip_smoke.py --workers`` in a fresh
+# interpreter: its coordinator forks card workers, so it must make no CUDA
+# call before every pool is closed (a child forked from a process that
+# initialized CUDA cannot use it).  Phase 3w's own card engines (the
+# single-process references) run after that, in the same interpreter.
+W_WORKERS = 4
+W_TICKS = 8  # lockstep ticks of (a) (phase 3 runs 20), then DRAIN_TICKS
+W_MIG_TICK = 3  # (b): redirect at this tick, serialize + install at the next
+W_FAULT_BATCH, W_FAULT_TICKS = 1 << 14, 3  # (c): the planted map, at a cut depth
+W_STREAM_WORKERS = (2, 4)  # (f)
+W_STREAM_BATCHES = 8
+# tests/conformance.py:131-133, the +workers configuration's statistics
+# tolerance (per-worker partial sums of the usage windows).
+WORKERS_RTOL, WORKERS_ATOL = 1e-12, 1e-18
+W_CHILD_TIMEOUT_S = 660
+W_RESULT_TAG = "PHASE3W "
+W_METRICS = ("processed_tuples", "emitted_tuples", "sink_tuples", "cross_node_tuples",
+             "intra_node_tuples", "dropped_credits")
+
+
+def workers_result(eng, snap, blobs) -> dict:
+    """Every field tests/conformance.py pins for the ``+workers``
+    configuration, from a finalized engine and its last snapshot."""
+    m = eng.metrics
+    return {
+        "metrics": [getattr(m, f) for f in W_METRICS],
+        "sink_outputs": m.sink_outputs,
+        "states": state_bytes(eng),
+        "kg_load": snap.kg_load,
+        "kg_tuple_rate": snap.kg_tuple_rate,
+        "kg_state_bytes": snap.kg_state_bytes,
+        "pair_src": snap.out_pairs.src,
+        "pair_dst": snap.out_pairs.dst,
+        "pair_rate": snap.out_pairs.rate,
+        "alloc": eng.router.table.copy(),
+        "queue_costs": eng.queue_costs(),
+        "migration_blobs": blobs,
+    }
+
+
+def workers_close(a, b) -> bool:
+    """tests/conformance.py's approx_equal on floats: |a - b| <= max(rtol *
+    max(|a|, |b|), atol) elementwise, shapes equal."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return a.shape == b.shape and bool(np.all(
+        (a == b) | (np.abs(a - b) <= np.maximum(
+            WORKERS_RTOL * np.maximum(np.abs(a), np.abs(b)), WORKERS_ATOL))))
+
+
+def workers_diff(a: dict, b: dict) -> list:
+    """The fields of two ``workers_result``s that differ: every field exact
+    (sink outputs and their order, state bytes, counts, arrivals, routing,
+    queues, blobs) but ``kg_load`` and ``pair_rate`` (WORKERS_RTOL/ATOL)."""
+    bad = []
+    for f in a:
+        x, y = a[f], b[f]
+        if f in ("kg_load", "pair_rate"):
+            same = workers_close(x, y)
+        elif isinstance(x, np.ndarray):
+            same = np.array_equal(x, y)
+        else:
+            same = x == y
+        if not same:
+            bad.append(f)
+    return bad
+
+
+def drained(eng) -> bool:
+    cost = getattr(eng, "worst_queue_cost", None)
+    return cost() == 0.0 if cost is not None else not any(eng.queue_costs())
+
+
+def drive_lockstep(eng, batches, *, mig=None, drain: int = DRAIN_TICKS) -> tuple[dict, float]:
+    """push + tick per batch (``mig = (tick, kg, dst)``: redirect at that
+    tick, serialize and install at the next), drain, fold, finalize; the
+    ``workers_result`` and the wall seconds until the fold."""
+    blobs = []
+    t0 = time.perf_counter()
+    for t, (k, v, ts) in enumerate(batches):
+        if mig is not None and t == mig[0]:
+            eng.redirect(mig[1], mig[2])
+        n = eng.push_source("airline", k, v, ts)
+        check(n == len(k), f"tick {t}: admitted {n} of {len(k)} tuples")
+        eng.tick()
+        if mig is not None and t == mig[0] + 1:
+            blobs.append(eng.serialize(mig[1]))
+            eng.install(mig[1], mig[2], blobs[-1])
+    for _ in range(drain):
+        eng.tick()
+    check(drained(eng), "queues not drained")
+    snap = eng.end_period()
+    seconds = time.perf_counter() - t0
+    eng.finalize()
+    return workers_result(eng, snap, blobs), seconds
+
+
+def job3_engine(device, *, batch: int, config, kgs: int = KGS, nodes: int = NODES,
+                collect_sinks: bool = True, **kw):
+    """Real Job 3 at phase 3's deployment through ``make_engine``."""
+    from repro_torch.data import real_job_3
+    from repro_torch.engine import make_engine
+
+    eng = make_engine(real_job_3(keygroups_per_op=kgs), nodes, config=config,
+                      service_rate=1e12, seed=SEED, collect_sinks=collect_sinks,
+                      device=device, **kw)
+    eng.backpressure.full_credit = 2 * batch
+    return eng
+
+
+@contextlib.contextmanager
+def interleaved_node_workers():
+    """Phase 3w (c)'s planted fault: node i on worker i % n, a map that is
+    not contiguous, so the exchange's worker-ordered merge is no longer the
+    single-process engine's node order."""
+    from repro_torch.engine import cluster
+
+    contiguous = cluster.contiguous_node_worker
+    cluster.contiguous_node_worker = lambda n, w: np.arange(n) % w
+    try:
+        yield
+    finally:
+        cluster.contiguous_node_worker = contiguous
+
+
+def lane_bytes_per_tick(topo, batch: int, n: int) -> int:
+    """Bytes one (sender → receiver) lane carries in a tick at this size:
+    every hop moves ``batch`` tuples a tick, a sender emits 1/n of them and
+    sends 1/n of those to each receiver, each as its destination's key and
+    value records, the f8 timestamp and the two i8 source columns."""
+    total = 0
+    for op, dops in topo.downstream().items():
+        for dop in dops:
+            schema = topo.operators[dop].schema
+            total += (schema.key.itemsize + schema.value.itemsize + 8 + 16) * batch
+    return -(-total // (n * n))
+
+
+def timed_ingest(eng) -> list:
+    """Wrap a cluster's ingest split (schema conversion, host hashing,
+    per-worker slicing and shipping of each admitted batch) to sum its
+    wall seconds into the returned one-element list."""
+    split = eng._split_and_push
+    spent = [0.0]
+
+    def split_and_push(*args):
+        t0 = time.perf_counter()
+        split(*args)
+        spent[0] += time.perf_counter() - t0
+
+    eng._split_and_push = split_and_push
+    return spent
+
+
+def shm_free_bytes() -> int:
+    import os
+
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def ctl_alloc(topo, nodes: int) -> np.ndarray:
+    """Phase 4's anti-collocated start: each operator's key groups dealt
+    round robin over the nodes from its own offset."""
+    alloc = np.zeros(topo.num_keygroups, dtype=np.int64)
+    for op in range(topo.num_operators):
+        base = topo.kg_base(op)
+        n_op = topo.operators[op].num_keygroups
+        alloc[base:base + n_op] = (np.arange(n_op) + op * (nodes // 2 + 1)) % nodes
+    return alloc
+
+
+def ctl_engine(device, config, **kw):
+    from repro_torch.data import real_job_3
+    from repro_torch.engine import make_engine
+
+    topo = real_job_3(keygroups_per_op=CTL_KGS)
+    return make_engine(topo, CTL_NODES, config=config, initial_alloc=ctl_alloc(topo, CTL_NODES),
+                       ser_cost=0.6, service_rate=3000.0, seed=SEED, device=device, **kw)
+
+
+def run_ctl(eng, results=None) -> dict:
+    """Phase 4's controller over ``eng`` (ALBIC; ``results``: replay these
+    adaptation results instead of solving, each on this engine's own
+    snapshot) for CTL_PERIODS periods; snapshots, tables and history."""
+    import dataclasses
+
+    from repro_torch.core import AdaptationFramework, AlbicParams
+    from repro_torch.data import StreamSpec, airline_stream
+    from repro_torch.engine import Controller, ControllerConfig
+
+    class Recording(AdaptationFramework):
+        def adapt(self, state, **kw):
+            if results is not None:
+                res = results[len(self.results)]
+                own = state.copy()
+                own.alloc = res.state.alloc.copy()
+                res = dataclasses.replace(res, state=own)
+            else:
+                res = super().adapt(state, **kw)
+            self.results.append(res)
+            return res
+
+    air = airline_stream(StreamSpec(rate=CTL_RATE, seed=SEED))
+    fw = Recording(mode="albic", max_migrations=10,
+                   albic_params=AlbicParams(max_ld=15.0, time_limit=1.5))
+    fw.results = []
+    snaps, tables = [], []
+    fold = eng.end_period
+
+    def end_period():
+        snaps.append(fold())
+        return snaps[-1]
+
+    eng.end_period = end_period
+    ctl = Controller(eng, fw, ControllerConfig(ticks_per_period=CTL_TICKS),
+                     feeder=lambda e, t: e.push_source("airline", *next(air)))
+    for _ in range(CTL_PERIODS):
+        ctl.period()
+        tables.append(eng.router.table.copy())
+    eng.finalize()
+    return dict(history=ctl.history, results=fw.results, snaps=snaps, tables=tables,
+                states=state_bytes(eng))
+
+
+def ctl_diff(a: dict, b: dict) -> list:
+    """Where two controller runs differ: each period's snapshot (kg_load and
+    pair rates at the workers tolerance, the rest exact), routing table
+    after the plan, PeriodMetrics (counts exact, floats and latency at the
+    workers tolerance; the solver's and the pause's wall seconds apart), and
+    the final states' bytes."""
+    bad = []
+    for p, (sa, sb) in enumerate(zip(a["snaps"], b["snaps"])):
+        for f in ("kg_tuple_rate", "kg_state_bytes", "alloc", "alive"):
+            if not np.array_equal(getattr(sa, f), getattr(sb, f)):
+                bad.append(f"period {p} snapshot {f}")
+        if not workers_close(sa.kg_load, sb.kg_load):
+            bad.append(f"period {p} snapshot kg_load")
+        pa, pb = sa.out_pairs, sb.out_pairs
+        if not (np.array_equal(pa.src, pb.src) and np.array_equal(pa.dst, pb.dst)
+                and workers_close(pa.rate, pb.rate)):
+            bad.append(f"period {p} pair rates")
+    for p, (ta, tb) in enumerate(zip(a["tables"], b["tables"])):
+        if not np.array_equal(ta, tb):
+            bad.append(f"period {p} routing table")
+    for ma, mb in zip(a["history"], b["history"]):
+        for f in ("num_migrations", "num_nodes_alive", "scaling_added", "scaling_marked",
+                  "period"):
+            if getattr(ma, f) != getattr(mb, f):
+                bad.append(f"period {ma.period} {f}")
+        for f in ("load_distance", "collocation_factor", "system_load", "load_index",
+                  "migration_cost"):
+            if not workers_close(getattr(ma, f), getattr(mb, f)):
+                bad.append(f"period {ma.period} {f}")
+        la, lb = ma.latency, mb.latency
+        if la.keys() != lb.keys() or not all(workers_close(la[k], lb[k]) for k in la):
+            bad.append(f"period {ma.period} latency")
+    if len(a["history"]) != len(b["history"]):
+        bad.append("period count")
+    if a["states"] != b["states"]:
+        bad.append("final states")
+    return bad
+
+
+def run_workers_child(device: str = "cuda", *, batch: int = BATCH, kgs: int = KGS,
+                      nodes: int = NODES, ticks: int = W_TICKS,
+                      fault_batch: int = W_FAULT_BATCH,
+                      stream_batches: int = W_STREAM_BATCHES) -> dict:
+    """Phase 3w, in this (fresh) interpreter: the pools (a)-(f) first, with
+    no CUDA call here; then this process's own card engines, the
+    single-process references; then every comparison.  ``device="cpu"``
+    (with small sizes) rehearses it on the host: the plain versions launch
+    nothing, so the launch checks are the card's only."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import StreamSpec, airline_stream
+    from repro_torch.engine import CheckpointPolicy, ExecutionConfig, SupervisionPolicy
+    from repro_torch.engine.checkpointing import payload_from_tree, restore_engine
+    from repro_torch.engine.faults import FaultPlan
+    from repro_torch.kernels import _build
+
+    check(not torch.cuda.is_initialized(), "the coordinator starts with CUDA initialized")
+    card = device == "cuda"
+    t_start = time.perf_counter()
+    if card:
+        built = _build.build(["keygroup_partition", "radix_sort"])  # nvcc: no CUDA call
+        log(f"[workers] routing kernels built or found: {built}")
+    size = dict(kgs=kgs, nodes=nodes)
+    launches = {"keygroup_partition": 0, "radix_sort": 0}
+
+    @contextlib.contextmanager
+    def pool(eng, what: str):
+        """Close ``eng`` whatever happens; fold its workers' launches."""
+        try:
+            yield eng
+        finally:
+            eng.close()
+        check(not any(p.is_alive() for p in eng.pool.processes),
+              f"{what}: worker processes outlived close()")
+        for name in launches:
+            launches[name] += eng.kernel_launches.get(name, 0)
+
+    # (a) + (b): lockstep at full size, a migration from worker 0 to worker 3.
+    batches = airline_batches(ticks, batch, SEED)
+    eng = job3_engine(device, batch=batch, config=ExecutionConfig.workers(W_WORKERS), **size)
+    topo = eng.topology
+    sum_op = topo._resolve("sumdelay")
+    base = topo.kg_base(sum_op)
+    mig_kg = next(kg for kg in range(base, base + kgs)
+                  if eng.node_worker[eng.router.node_of(kg)] == 0)
+    mig_dst = int(np.flatnonzero(eng.node_worker == W_WORKERS - 1)[0])
+    mig = (W_MIG_TICK, mig_kg, mig_dst)
+    mig_src = eng.router.node_of(mig_kg)
+    with pool(eng, "lockstep"):
+        cluster_a, secs_a = drive_lockstep(eng, batches, mig=mig)
+    check(eng.worker_of_node(eng.router.node_of(mig_kg)) == W_WORKERS - 1,
+          "(b) the migrated key group is not on the last worker")
+    log(f"[workers] (a) .workers({W_WORKERS}) lockstep: {ticks} x {batch} tuples + "
+        f"{DRAIN_TICKS} drain ticks in {secs_a:.3f} s (sinks collected); (b) key "
+        f"group {mig_kg} moved from node {mig_src} (worker 0) to node {mig_dst} (worker "
+        f"{W_WORKERS - 1}) at ticks {W_MIG_TICK}-{W_MIG_TICK + 1}")
+
+    # (c): the planted non-contiguous map, and its control, at a cut depth.
+    fault_batches = airline_batches(W_FAULT_TICKS, fault_batch, SEED + 1)
+    small = {}
+    for label, planted in (("control", False), ("planted", True)):
+        with interleaved_node_workers() if planted else contextlib.nullcontext():
+            eng = job3_engine(device, batch=fault_batch,
+                              config=ExecutionConfig.workers(W_WORKERS), **size)
+        check(planted == bool(np.any(np.diff(eng.node_worker) < 0)),
+              f"(c) {label}: node → worker map {eng.node_worker.tolist()}")
+        with pool(eng, f"fault-{label}"):
+            small[label] = drive_lockstep(eng, fault_batches)[0]
+
+    # (d): phase 4's controller over .workers(2).
+    eng = ctl_engine(device, ExecutionConfig.workers(2), collect_sinks=False)
+    with pool(eng, "controller"):
+        ctl_w = run_ctl(eng)
+    log(f"[workers] (d) controller over .workers(2): migrations per period "
+        f"{[m.num_migrations for m in ctl_w['history']]}")
+
+    # (e): supervision, a planted kill at the end of period 2.
+    ck_dir = ROOT / "build" / "smoke_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    sup_cfg = ExecutionConfig.workers(
+        W_WORKERS, checkpoint=CheckpointPolicy(str(ck_dir), every=1, keep=CTL_PERIODS),
+        supervision=SupervisionPolicy())
+    air = airline_stream(StreamSpec(rate=CTL_RATE, seed=SEED + 7))
+    sup_batches = [next(air) for _ in range(CTL_PERIODS * CTL_TICKS)]
+    eng = ctl_engine(device, sup_cfg, collect_sinks=True, faults=FaultPlan.kill_at_period(1, 2))
+    with pool(eng, "supervised"):
+        it = iter(sup_batches)
+        for _ in range(CTL_PERIODS):
+            for _ in range(CTL_TICKS):
+                eng.push_source("airline", *next(it))
+                eng.tick()
+            eng.end_period()
+        for _ in range(60):
+            if drained(eng):
+                break
+            eng.tick()
+        check(drained(eng), "(e) queues not drained")
+        eng.finalize()
+    supervised = eng
+    reports = supervised.recoveries
+    check(len(reports) == 1, f"(e) expected one recovery, got {reports}")
+    rep = reports[0]
+    check(rep.cause == "kill" and rep.worker == 1 and not rep.gave_up,
+          f"(e) unexpected recovery {rep}")
+    reborn = [life for life in supervised.worker_stats
+              if life["worker"] == 1 and life["incarnation"] == 1 and not life["died"]]
+    check(len(reborn) == 1, f"(e) respawned worker's lifetime missing: {supervised.worker_stats}")
+    reborn_launches = {k: reborn[0]["launches"].get(k, 0) for k in launches}
+    check(not card or all(n > 0 for n in reborn_launches.values()),
+          f"(e) the respawned worker launched {reborn_launches}: it did not route on the card")
+    log(f"[workers] (e) recovery: worker {rep.worker} ({rep.cause}), checkpoint step "
+        f"{rep.restored_step}, cursor {rep.restored_cursor}, orphans {rep.orphans}, rehomed "
+        f"{rep.rehomed}, replayed {rep.replayed_batches}, mttr {rep.mttr_s:.3f} s; the "
+        f"respawned worker's launches {reborn_launches}")
+
+    # (f): pipelined throughput, default lanes and lanes sized for a tick.
+    n_stream = stream_batches
+    stream_batches = airline_batches(n_stream, batch, SEED + 2)
+    total = n_stream * batch
+    free = shm_free_bytes()
+    stream = {"dev_shm_free_bytes": free, "tuples": total}
+    for n in W_STREAM_WORKERS:
+        need = lane_bytes_per_tick(topo, batch, n)
+        big = min(-(-2 * need // (1 << 20)) << 20, (free // (2 * n * (n - 1))) >> 20 << 20)
+        stream[f"w{n}_lane_bytes_per_tick"] = need
+        stream[f"w{n}_big_lane_bytes"] = big
+        for label, shm in (("1MiB", 1 << 20), ("big", big)):
+            eng = job3_engine(device, batch=batch, collect_sinks=False,
+                              config=ExecutionConfig.workers(n, shm=shm), **size)
+            with pool(eng, f"stream-w{n}-{label}"):
+                eng.run_stream("airline", stream_batches[:1], window=2 * n)  # warm-up
+                while not drained(eng):
+                    eng.tick()
+                ingest = timed_ingest(eng)
+                t0 = time.perf_counter()
+                accepted = eng.run_stream("airline", stream_batches, window=2 * n)
+                while not drained(eng):
+                    eng.tick()
+                wall = time.perf_counter() - t0
+                eng.finalize()
+            check(accepted == total, f"(f) w{n} {label}: accepted {accepted} of {total}")
+            check(eng.metrics.sink_tuples == 2 * (total + batch), f"(f) w{n} {label}: sink "
+                  f"tuples {eng.metrics.sink_tuples}")
+            rate = total / wall
+            stream[f"w{n}_{label}"] = dict(
+                tuples_per_s=rate, wall_s=wall, coordinator_ingest_s=ingest[0],
+                shm_lane_bytes=shm, exchange=dict(eng.exchange_stats),
+                per_worker=[dict(worker=life["worker"],
+                                 device_route_seconds=life["metrics"]["device_route_seconds"],
+                                 host_device_copies=life["metrics"]["host_device_copies"])
+                            for life in eng.worker_stats])
+            log(f"[workers] (f) run_stream .workers({n}, shm={shm}): {rate:.0f} tuples/s "
+                f"({wall:.3f} s, of which the coordinator's ingest split {ingest[0]:.3f} s); "
+                f"exchange {stream[f'w{n}_{label}']['exchange']}; per worker "
+                f"{stream[f'w{n}_{label}']['per_worker']}")
+
+    # (g): only now this process's own CUDA calls.
+    initialized = torch.cuda.is_initialized()
+    log(f"[workers] (g) coordinator torch.cuda.is_initialized() before its first CUDA "
+        f"call: {initialized}")
+    check(not initialized, "(g) the coordinator initialized CUDA while it had pools")
+    if card:
+        check(torch.cuda.is_available(), "(g) CUDA not available to the coordinator")
+    dev = torch.device(device, 0) if card else torch.device("cpu")
+
+    single_a, secs_single = drive_lockstep(
+        job3_engine(dev, batch=batch, config=ExecutionConfig.typed(), **size), batches, mig=mig)
+    bad = workers_diff(cluster_a, single_a)
+    check(not bad, f"(a) .workers({W_WORKERS}) differs from the single-process card engine "
+          f"in {bad}")
+    check(len(single_a["migration_blobs"]) == 1 and len(single_a["migration_blobs"][0]) > 64,
+          "(b) no migration blob")
+    log(f"[workers] (a) bit-identical to the single-process card engine ({secs_single:.3f}"
+        f" s): {len(single_a['sink_outputs'])} sink outputs in order, {len(single_a['states'])} "
+        f"states, counts {single_a['metrics']}; kg_load and pair_rate within rtol "
+        f"{WORKERS_RTOL}; (b) blob of key group {mig_kg}: {len(single_a['migration_blobs'][0])} "
+        f"bytes, equal")
+    del cluster_a, single_a
+    gc.collect()
+
+    single_c = drive_lockstep(job3_engine(dev, batch=fault_batch, config=ExecutionConfig.typed(),
+                                          **size), fault_batches)[0]
+    ok_fields, bad_fields = workers_diff(small["control"], single_c), workers_diff(
+        small["planted"], single_c)
+    check(not ok_fields, f"(c) the contiguous control differs in {ok_fields}")
+    check(bool(bad_fields), "(c) the planted non-contiguous map was not rejected")
+    log(f"[workers] (c) planted non-contiguous node map rejected: {bad_fields} differ "
+        f"(contiguous control at the same size: equal)")
+
+    ctl_s = run_ctl(ctl_engine(dev, ExecutionConfig.typed(), collect_sinks=False),
+                    results=ctl_w["results"])
+    bad = ctl_diff(ctl_w, ctl_s)
+    check(not bad, f"(d) controller over workers differs from single-process: {bad}")
+    migrations = sum(m.num_migrations for m in ctl_w["history"])
+    check(migrations >= 1, "(d) the controller ran no migration")
+    log(f"[workers] (d) PeriodMetrics, snapshots, tables and states == single-process "
+        f"({migrations} migrations)")
+
+    tree, meta = CheckpointManager(str(ck_dir)).restore(step=rep.restored_step)
+    payload = payload_from_tree(tree)
+    check(meta["ingest_cursor"] == rep.restored_cursor, "(e) checkpoint cursor")
+    payload["table"] = np.asarray(supervised.router.table, dtype=np.int64).copy()
+    oracle = ctl_engine(dev, ExecutionConfig.typed(), collect_sinks=True)
+    restore_engine(oracle, payload)
+    for b in sup_batches[rep.restored_cursor:]:
+        oracle.push_source("airline", *b)
+        oracle.tick()
+    for _ in range(60):
+        if drained(oracle):
+            break
+        oracle.tick()
+    tail = supervised.metrics.sink_outputs[rep.restored_sink_len:]
+    check(tail == oracle.metrics.sink_outputs, "(e) sinks after the recovery's mark differ "
+          "from the oracle replayed from the checkpoint")
+    same_states = ({kg: s for kg, s in supervised.store.items() if s}
+                   == {kg: s for kg, s in oracle.store.items() if s})
+    check(same_states, "(e) states differ from the oracle replay")
+    log(f"[workers] (e) converged to the oracle replay: {len(tail)} sink outputs after the "
+        f"mark, states equal")
+
+    single = job3_engine(dev, batch=batch, collect_sinks=False, config=ExecutionConfig.typed(),
+                         **size)
+    single.push_source("airline", *stream_batches[0])  # warm-up, as the workers'
+    while not drained(single):
+        single.tick()
+    t0 = time.perf_counter()
+    for b in stream_batches:
+        single.push_source("airline", *b)
+        single.tick()
+    while not drained(single):
+        single.tick()
+    stream["single_tuples_per_s"] = total / (time.perf_counter() - t0)
+    for n in W_STREAM_WORKERS:
+        for label in ("1MiB", "big"):
+            stream[f"w{n}_{label}"]["vs_single"] = (
+                stream[f"w{n}_{label}"]["tuples_per_s"] / stream["single_tuples_per_s"])
+        stream[f"w{n}_vs_single"] = stream[f"w{n}_1MiB"]["vs_single"]
+    log(f"[workers] (f) single-process .typed() {stream['single_tuples_per_s']:.0f} tuples/s; "
+        + "; ".join(f"w{n}: {stream[f'w{n}_1MiB']['vs_single']:.3f}x at 1 MiB lanes, "
+                    f"{stream[f'w{n}_big']['vs_single']:.3f}x at "
+                    f"{stream[f'w{n}_big_lane_bytes']} B lanes (one tick needs "
+                    f"{stream[f'w{n}_lane_bytes_per_tick']} B a lane)"
+                    for n in W_STREAM_WORKERS)
+        + f"; /dev/shm free {free} B")
+    check(not card or all(n > 0 for n in launches.values()), f"(g) worker launches {launches}")
+    log(f"[workers] (g) launches folded from every worker of every pool: {launches}")
+    return dict(ok=True, launches=launches, stream=stream, migrations=migrations,
+                recovery=dict(worker=rep.worker, restored_step=rep.restored_step,
+                              replayed=rep.replayed_batches, mttr_s=rep.mttr_s,
+                              reborn_launches=reborn_launches),
+                fault_fields=bad_fields, coordinator_cuda_initialized_before=initialized,
+                seconds=time.perf_counter() - t_start)
+
+
+def run_workers(timeout: float = W_CHILD_TIMEOUT_S) -> dict:
+    """Phase 3w in a fresh interpreter (``--workers``): relays its log
+    lines, returns its result; any failure there fails this run."""
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--workers"],
+                             capture_output=True, text=True, timeout=timeout, cwd=str(ROOT))
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"phase 3w did not finish in {timeout} s: "
+                           f"{(e.stderr or '')[-3000:]}") from e
+    result = None
+    for line in out.stdout.splitlines():
+        if line.startswith(W_RESULT_TAG):
+            result = json.loads(line[len(W_RESULT_TAG):])
+        else:
+            log(line)
+    check(out.returncode == 0, f"phase 3w failed (exit {out.returncode}): {out.stderr[-4000:]}")
+    check(result is not None, "phase 3w printed no result line")
+    check(result.get("ok") is True, f"phase 3w result not ok: {result}")
+    log(f"[workers] phase 3w child: {time.perf_counter() - t0:.1f} s wall")
+    return result
+
+
+def workers_main() -> int:
+    """``--workers``: phase 3w alone, with no CUDA call before its pools are
+    closed (so not ``torch.cuda.is_available()`` either: the parent run
+    checked it; this interpreter's first CUDA call is in (g))."""
+    sys.path.insert(0, str(SRC))
+    try:
+        result = run_workers_child()
+    except SmokeFailure as e:
+        print(f"chip_smoke --workers: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(W_RESULT_TAG + json.dumps(result, default=float), flush=True)
+    return 0
 
 
 # ------------------------------------------------------------------ phases 5-8
@@ -2521,6 +3099,10 @@ def main() -> int:
     if not (src / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: {src}/repro_torch not found", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--workers"]:
+        # Phase 3w alone, in this interpreter: no CUDA call before its pools
+        # are closed, so not the availability check below either.
+        return workers_main()
     try:
         import torch
     except ImportError:
@@ -2616,6 +3198,13 @@ def main() -> int:
             f"{superstep['device']['graph_launches']}")
         gc.collect()
         torch.cuda.empty_cache()
+        # Phase 3w in a fresh interpreter (this one holds a CUDA context,
+        # and the multi-worker coordinator forks): launches are the
+        # workers', folded by their coordinators.
+        workers = run_workers()
+        for name in routing:
+            check(workers["launches"][name] > 0, f"kernel {name} was not launched by a worker")
+            launches[name] += workers["launches"][name]
 
         lm, served = {}, {}
         for spec in LM_RUNS:
@@ -2624,6 +3213,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[summary] engine {engine}; controller {controller}; superstep {superstep}; "
+        f"workers {workers}; "
         f"lm {lm}; serve {served}; "
         f"{time.perf_counter() - t_start:.1f} s total")
     rows = [dict(name=name, launches=launches[name], **kernels[name]) for name in kernels]

@@ -1,7 +1,6 @@
 """Execution configuration of the port's engine.
 
-The port of ``repro.engine.config.ExecutionConfig`` for the tiers this
-slice carries:
+The port of ``repro.engine.config.ExecutionConfig``:
 
 ======================  =====================================================
 preset                  meaning
@@ -19,13 +18,17 @@ preset                  meaning
                         ``jit_fusible`` chain on the device, and K-tick
                         scans (``Engine.run_supersteps``) captured into a
                         CUDA graph on the card
+``.workers(n)``         ``.typed()`` sharded over ``n`` OS worker processes
+                        (:class:`repro_torch.engine.cluster.ClusterEngine`),
+                        each routing on the card
 ======================  =====================================================
 
-Every preset routes through the card's kernels.  The reference's other
-tiers raise :class:`NotImplementedError` naming the ROADMAP.md item (queue
-1) that brings them: ``.workers(n)`` (multi-worker runtime), a
-``checkpoint`` policy (jax-free checkpoints), and ``.jit(mesh=...)`` and
-``.superstep(mesh=...)`` (item 11, mesh and dry-run tooling).
+Every preset routes through the card's kernels.  A :class:`CheckpointPolicy`
+adds periodic checkpoints (single-process engine or the multi-worker
+coordinator) and a :class:`SupervisionPolicy` worker supervision (heartbeat
+deadlines and respawn).  ``.jit(mesh=...)`` and ``.superstep(mesh=...)``
+raise :class:`NotImplementedError` naming ROADMAP.md queue 1, item 11 (mesh
+and dry-run tooling).
 """
 
 from __future__ import annotations
@@ -34,11 +37,9 @@ import dataclasses
 from typing import Any, Optional
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP.md queue 1, "
-        f"{item!r}"
-    )
+#: Default capacity (bytes) of one shared-memory exchange lane — the
+#: documented ``ExecutionConfig.workers(n, shm=...)`` default.
+SHM_LANE_BYTES = 1 << 20
 
 
 def _no_mesh(preset: str, mesh: Any, mesh_axis: Optional[str]) -> None:
@@ -50,8 +51,82 @@ def _no_mesh(preset: str, mesh: Any, mesh_axis: Optional[str]) -> None:
 
 
 @dataclasses.dataclass(frozen=True)
+class CheckpointPolicy:
+    """Periodic engine checkpoints.
+
+    The engine (or the multi-worker coordinator) snapshots the routing
+    table, every key group's state envelope, split cursors, the partial SPL
+    window and the ingestion cursor under one atomic manifest every
+    :attr:`every` SPL periods, via
+    :class:`repro_torch.checkpoint.CheckpointManager` rooted at
+    :attr:`directory`.
+    """
+
+    directory: str
+    #: Checkpoint every N ``end_period()`` calls (N >= 1).
+    every: int = 2
+    #: Complete checkpoints retained on disk (older ones are pruned).
+    keep: int = 3
+
+    def __post_init__(self) -> None:
+        if not self.directory:
+            raise ValueError("CheckpointPolicy.directory must be a path")
+        if self.every < 1:
+            raise ValueError("CheckpointPolicy.every must be >= 1")
+        if self.keep < 1:
+            raise ValueError("CheckpointPolicy.keep must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class SupervisionPolicy:
+    """Worker supervision: liveness deadlines and bounded respawn.
+
+    Workers heartbeat over their report queue after every command; a worker
+    with outstanding commands that stays silent for ``hb_interval_s *
+    hb_misses`` seconds is presumed wedged and escalated to SIGKILL (wedged
+    is not dead — escalation turns it into a clean death the respawn path
+    handles).  Dead workers are respawned with bounded exponential backoff
+    and their key groups restored from the latest checkpoint (recovery *is*
+    reconfiguration: orphans are re-homed through the allocator).
+    """
+
+    hb_interval_s: float = 5.0
+    #: Consecutive missed heartbeat intervals before SIGKILL escalation.
+    hb_misses: int = 6
+    #: Respawn dead workers (False → supervise liveness only; a death
+    #: permanently fails the worker's nodes).
+    respawn: bool = True
+    #: Give up on a worker after this many respawns without an intervening
+    #: completed checkpoint.
+    max_respawns: int = 3
+    #: Exponential backoff before the k-th respawn: min(base * 2**k, cap).
+    backoff_base_s: float = 0.0
+    backoff_cap_s: float = 5.0
+    #: How recovered key groups are re-homed: "albic" (Algorithm 2),
+    #: "milp" (solve_allocation), or "keep" (checkpointed placement as-is).
+    rehome: str = "albic"
+
+    def __post_init__(self) -> None:
+        if self.hb_interval_s <= 0:
+            raise ValueError("hb_interval_s must be > 0")
+        if self.hb_misses < 1:
+            raise ValueError("hb_misses must be >= 1")
+        if self.max_respawns < 0:
+            raise ValueError("max_respawns must be >= 0")
+        if self.backoff_base_s < 0 or self.backoff_cap_s < 0:
+            raise ValueError("backoff times must be >= 0")
+        if self.rehome not in ("albic", "milp", "keep"):
+            raise ValueError(f"unknown rehome strategy {self.rehome!r}")
+
+    @property
+    def deadline_s(self) -> float:
+        """Silence (with outstanding commands) that triggers escalation."""
+        return self.hb_interval_s * self.hb_misses
+
+
+@dataclasses.dataclass(frozen=True)
 class ExecutionConfig:
-    """How a topology executes: queue layout and operator tier."""
+    """How a topology executes: queue layout, operator tier, worker count."""
 
     queue_impl: str = "soa"
     use_fn_seg: bool = True
@@ -67,8 +142,19 @@ class ExecutionConfig:
     split_degree: int = 0
     #: Replica key-group slots reserved when ``split_degree > 0``.
     split_reserve: int = 16
-    #: Periodic checkpoints: not ported (must stay None).
-    checkpoint: Optional[Any] = None
+    #: OS worker processes (``> 1``: the multi-worker runtime).
+    num_workers: int = 1
+    #: Bytes per (sender → receiver) shared-memory exchange lane in the
+    #: multi-worker runtime (default :data:`SHM_LANE_BYTES` = 1 MiB); a full
+    #: ring falls back to the queue path (correct, just slower).  ``0``
+    #: disables shm lanes (pure pickled-queue exchange).
+    shm_lane_bytes: int = SHM_LANE_BYTES
+    #: Periodic checkpoint cadence (None disables checkpoints).  Applies to
+    #: the coordinator only — worker shards never checkpoint themselves.
+    checkpoint: Optional[CheckpointPolicy] = None
+    #: Worker supervision (heartbeat deadlines + respawn).  Multi-worker
+    #: runtime only; None disables supervision.
+    supervision: Optional[SupervisionPolicy] = None
 
     def __post_init__(self) -> None:
         if self.queue_impl not in ("soa", "deque"):
@@ -83,6 +169,20 @@ class ExecutionConfig:
                 "use_superstep requires use_fn_jit=True (the fused tick "
                 "compiles fn_jit bodies)"
             )
+        if self.num_workers < 1:
+            raise ValueError("num_workers must be >= 1")
+        if self.shm_lane_bytes < 0:
+            raise ValueError("shm_lane_bytes must be >= 0 (0 disables shm lanes)")
+        if 0 < self.shm_lane_bytes < 64:
+            raise ValueError(
+                "shm_lane_bytes must be 0 or >= 64 (a ring smaller than one "
+                "record header can never deliver)"
+            )
+        if self.num_workers > 1 and (self.use_fn_jit or self.use_superstep):
+            raise ValueError(
+                "the multi-worker runtime runs the numpy tiers only "
+                "(use_fn_jit/use_superstep are single-process)"
+            )
         if self.split_degree:
             if self.split_degree < 2:
                 raise ValueError(
@@ -94,16 +194,30 @@ class ExecutionConfig:
                     "split_reserve must fit at least one split "
                     "(split_degree - 1 replica slots)"
                 )
-            if self.use_fn_jit:
+            if self.num_workers > 1 or self.use_fn_jit:
                 raise ValueError(
-                    "hot-key splitting runs on the numpy tiers only (replica "
-                    "key groups live outside the jit tier's per-operator "
-                    "column space)"
+                    "hot-key splitting runs on the single-process numpy "
+                    "tiers only (replica key groups live outside the jit "
+                    "tier's per-operator column space)"
                 )
         if self.split_reserve < 0:
             raise ValueError("split_reserve must be >= 0")
-        if self.checkpoint is not None:
-            raise _not_ported("ExecutionConfig.checkpoint", "Jax-free checkpoints")
+        if self.supervision is not None and self.num_workers == 1:
+            raise ValueError(
+                "supervision requires the multi-worker runtime "
+                "(num_workers > 1); the single-process engine has no worker "
+                "processes to supervise"
+            )
+        if (
+            self.supervision is not None
+            and self.supervision.respawn
+            and self.checkpoint is None
+        ):
+            raise ValueError(
+                "supervision with respawn=True requires a CheckpointPolicy "
+                "(a respawned worker restores its key groups from the "
+                "latest checkpoint)"
+            )
 
     # -- presets --------------------------------------------------------------
     @classmethod
@@ -142,8 +256,28 @@ class ExecutionConfig:
         return cls(use_fn_jit=True, use_superstep=True)
 
     @classmethod
-    def workers(cls, n: int, **_kw) -> "ExecutionConfig":
-        raise _not_ported("ExecutionConfig.workers()", "Multi-worker runtime")
+    def workers(
+        cls,
+        n: int,
+        *,
+        shm: int = SHM_LANE_BYTES,
+        checkpoint: Optional[CheckpointPolicy] = None,
+        supervision: Optional[SupervisionPolicy] = None,
+    ) -> "ExecutionConfig":
+        """``.typed()`` sharded over ``n`` OS worker processes.
+
+        ``shm`` sizes each (sender → receiver) shared-memory exchange lane
+        in bytes (default 1 MiB; see :data:`SHM_LANE_BYTES`).  ``shm=0``
+        disables the shm lanes and exchanges everything over the pickled
+        queue path.  ``checkpoint``/``supervision`` enable the self-healing
+        layer (:mod:`repro_torch.engine.supervisor`).
+        """
+        return cls(
+            num_workers=int(n),
+            shm_lane_bytes=int(shm),
+            checkpoint=checkpoint,
+            supervision=supervision,
+        )
 
     # -- plumbing -------------------------------------------------------------
     def replace(self, **changes) -> "ExecutionConfig":
@@ -159,6 +293,12 @@ class ExecutionConfig:
             parts.append("jit")
         if self.use_superstep:
             parts.append("superstep")
+        if self.num_workers > 1:
+            parts.append("workers")
         if self.split_degree:
             parts.append(f"split{self.split_degree}")
+        if self.checkpoint is not None:
+            parts.append(f"ckpt{self.checkpoint.every}")
+        if self.supervision is not None:
+            parts.append("supervised")
         return "+".join(parts)

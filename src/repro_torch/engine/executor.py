@@ -54,8 +54,11 @@ per K ticks).
 ``device="cpu"`` runs the identical path with the kernels' plain PyTorch
 versions on CPU tensors; it is bit-identical to the reference's numpy
 engine, which the conformance tests pin (the compiled tier within the
-reference's documented float tolerance).  Periodic checkpoints are not part
-of the port yet.
+reference's documented float tolerance).  A :class:`~repro_torch.engine.
+config.CheckpointPolicy` commits a checkpoint every ``every``-th
+``end_period`` (:mod:`repro_torch.engine.checkpointing`), and
+``ExecutionConfig.workers(n)`` shards the engine over worker processes
+(:mod:`repro_torch.engine.cluster`, through ``make_engine``).
 """
 
 from __future__ import annotations
@@ -123,6 +126,11 @@ class EngineMetrics:
     # Host wall seconds of those device round trips (upload, kernels,
     # download — the downloads synchronize), to set against tick time.
     device_route_seconds: float = 0.0
+    # Multi-worker shards only, per destination operator id: batches
+    # partitioned a first time to split them by owning worker (each is
+    # partitioned again when the merged batch routes, as in the reference),
+    # so partition_kernel_batches counts both.
+    exchange_split_batches: dict = dataclasses.field(default_factory=dict)
     # Materialized sink tuples; only populated when the engine was built with
     # ``collect_sinks=True`` (unbounded growth otherwise — benchmarks disable
     # it so they measure the data plane, not list appends).
@@ -328,8 +336,17 @@ class Engine:
         self._capacity_list = self.capacity.tolist()
         self._ticks_this_period = 0
         self.alive = np.ones(num_nodes, dtype=bool)
-        # Source batches admitted so far (counts _admit_source calls).
+        # Source batches admitted so far — the checkpoint/replay cursor
+        # (counts _admit_source calls).
         self.ingest_cursor = 0
+        # Periodic checkpoints (config.checkpoint) of the single-process
+        # engine; the multi-worker coordinator checkpoints through its
+        # supervisor instead.
+        self._checkpointer = None
+        if config.checkpoint is not None and config.num_workers == 1:
+            from repro_torch.engine.checkpointing import EngineCheckpointer
+
+            self._checkpointer = EngineCheckpointer(config.checkpoint)
 
     # ------------------------------------------------------------------ feed
     def source_credits(self) -> int:
@@ -1214,7 +1231,8 @@ class Engine:
     def _dispatch_batch(self, dop, batch, src_kgs, src_nodes) -> None:
         """Deliver one gathered per-operator batch (the flush → route seam).
 
-        The reference's multi-worker shard engine overrides this seam; the
+        The multi-worker shard engine overrides this to split the batch by
+        owning worker and exchange the remote slices before routing — the
         single-process path routes directly.
         """
         self._route_batch(dop, batch, src_kgs=src_kgs, src_nodes=src_nodes)
@@ -1247,6 +1265,10 @@ class Engine:
         )
         self.window.reset()
         self._ticks_this_period = 0
+        if self._checkpointer is not None:
+            # Cadence hook: every policy.every-th period commits a snapshot
+            # (post-fold — the checkpointed window is the new, empty one).
+            self._checkpointer.note_period(self)
         return state
 
     # ------------------------------------------------- direct state migration

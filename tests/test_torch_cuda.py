@@ -21,7 +21,10 @@ superstep (a record pipeline, both routing modes) equals the card's
 ``.jit()`` engine through fused ticks, a migration and K-tick scans; its
 captured scan replays bit-identical to the same loop run eagerly, with both
 routing kernels inside the graph held against their plain versions; and
-its ticks and scans raise nothing under the sync debug mode.  Without a
+its ticks and scans raise nothing under the sync debug mode.  The
+multi-worker runtime routes on the card from four worker processes, forked
+in a fresh interpreter, equal to the single-process card engine, and
+refuses ``device="cuda"`` once its caller has initialized CUDA.  Without a
 card every test here skips.  On
 the card: ``python -m pytest -m gpu tests/test_torch_cuda.py`` (this file
 imports neither jax nor the reference package).
@@ -975,3 +978,75 @@ def test_hybrid_and_moe_smoke_on_card_match_cpu(cuda, arch, dtype, launched, tol
         dec_c, _ = model.decode_step(params, cache_c, nxt, pos)
         dec_g, _ = model.decode_step(params_g, cache_g, nxt.to(cuda), pos.to(cuda))
         np.testing.assert_allclose(dec_g.cpu().numpy(), dec_c.numpy(), **tol)
+
+
+# ---------------------------------------------------------------------------
+# The multi-worker runtime: card workers fork from a CUDA-free coordinator
+# ---------------------------------------------------------------------------
+
+_CLUSTER_ON_CARD = r"""
+import sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import numpy as np
+import torch
+import chip_smoke as cs
+from repro_torch.engine import ExecutionConfig
+
+assert not torch.cuda.is_initialized()
+batches = cs.airline_batches(5, 4096, 0)
+eng = cs.job3_engine("cuda", batch=4096, config=ExecutionConfig.workers(4), kgs=50, nodes=8)
+base = eng.topology.kg_base(eng.topology._resolve("sumdelay"))
+kg = next(k for k in range(base, base + 50) if eng.node_worker[eng.router.node_of(k)] == 0)
+mig = (2, kg, int(np.flatnonzero(eng.node_worker == 3)[0]))
+try:
+    cluster, _ = cs.drive_lockstep(eng, batches, mig=mig)
+finally:
+    eng.close()
+launches = eng.kernel_launches
+assert launches["keygroup_partition"] > 0 and launches["radix_sort"] > 0, launches
+assert not torch.cuda.is_initialized()  # the coordinator's first CUDA call is next
+single, _ = cs.drive_lockstep(
+    cs.job3_engine(torch.device("cuda", 0), batch=4096, config=ExecutionConfig.typed(),
+                   kgs=50, nodes=8), batches, mig=mig)
+bad = cs.workers_diff(cluster, single)
+assert not bad, bad
+assert len(single["migration_blobs"]) == 1
+print("OK", launches)
+"""
+
+
+def test_cluster_workers_route_on_the_card_in_a_fresh_interpreter(cuda):
+    """chip_smoke.py phase 3w's (a)-(b) at a small size: four card workers
+    on Real Job 3 with a migration from worker 0 to worker 3, every pinned
+    field equal to the single-process card engine's (kg_load and pair_rate
+    at rtol 1e-12), both routing kernels launched by the workers.  In a
+    fresh interpreter: this process already holds a CUDA context, and a
+    child forked from it could not use the card."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", _CLUSTER_ON_CARD, str(root / "src"), str(root)],
+        capture_output=True, text=True, timeout=600, cwd=str(root),
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.startswith("OK"), out.stdout[-2000:]
+
+
+def test_cluster_refuses_cuda_once_the_caller_initialized_it(cuda):
+    """``ClusterEngine(device="cuda")`` in a process that initialized CUDA
+    raises before it forks anything (never a hang, never a CPU fallback)."""
+    import multiprocessing
+
+    from repro_torch.data import real_job_3
+    from repro_torch.engine import ExecutionConfig, make_engine
+
+    torch.zeros(1, device=cuda)
+    assert torch.cuda.is_initialized()
+    before = set(multiprocessing.active_children())
+    with pytest.raises(RuntimeError, match="has not initialized CUDA"):
+        make_engine(real_job_3(keygroups_per_op=8), 4, config=ExecutionConfig.workers(2),
+                    device="cuda")
+    assert set(multiprocessing.active_children()) == before

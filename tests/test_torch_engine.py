@@ -60,10 +60,14 @@ from repro_torch.engine.serde import Envelope as PortEnvelope
 
 _KGS = 12
 JOBS = ("job2", "job3")
+# The workers configuration sits before the jit ones, and the reference
+# runs only ``.typed()`` in the test that drives them: its processes fork
+# before any jax state exists in this process (tests/conformance.py's rule).
 PORT_CONFIGS = {
     "typed": port_engine.ExecutionConfig.typed(),
     "seg": port_engine.ExecutionConfig.seg(),
     "oracle": port_engine.ExecutionConfig.oracle(),
+    "workers": port_engine.ExecutionConfig.workers(2),
     "jit": port_engine.ExecutionConfig.jit(),
     "superstep": port_engine.ExecutionConfig.superstep(),
 }
@@ -94,15 +98,18 @@ def _port_factories(job):
 
 
 def run_port_scenario(topo_factory, feeder_factory, scenario, config):
-    """``conformance.run_scenario``'s drive, on the port's CPU engine."""
+    """``conformance.run_scenario``'s drive, on the port's CPU engine
+    (``make_engine``: the multi-worker runtime under ``.workers(n)``, its
+    pool bounded by a 60 s deadline)."""
     topo = topo_factory()
-    eng = port_engine.Engine(
+    eng = port_engine.make_engine(
         topo,
         scenario.num_nodes,
         config=config,
         service_rate=scenario.service_rate,
         seed=scenario.seed,
         device="cpu",
+        **({"timeout": 60.0} if config.num_workers > 1 else {}),
     )
     feeds = feeder_factory()
     rng = np.random.default_rng(scenario.seed + 1)
@@ -179,15 +186,18 @@ def test_port_engine_matches_reference(job, scenario, config):
     # Routed hops went through the kernels (plain versions here): every
     # operator of jobs 2-3 partitions by an integer key — routedelay's by a
     # column expression, which needs schema-typed batches; on object edges
-    # it hashes on the host, as the reference does.
+    # it hashes on the host, as the reference does.  A multi-worker shard
+    # partitions each exchanged hop twice (split by owner, then routed),
+    # and the coordinator folds every worker's counters.
     m = eng.metrics
     ops = eng.topology.operators
     assert set(m.routed_batches) == set(range(len(ops)))
     expect = {
-        op: n
+        op: n + m.exchange_split_batches.get(op, 0)
         for op, n in m.routed_batches.items()
         if cfg.use_schema or ops[op].key_by_value is None
     }
+    assert bool(m.exchange_split_batches) == (cfg.num_workers > 1)
     assert m.partition_kernel_batches == expect
     assert 0 < sum(m.sort_kernel_batches.values()) <= sum(m.routed_batches.values())
     assert m.host_device_copies > 0

@@ -603,7 +603,3 @@ def test_unported_tiers_raise_naming_their_items():
         jx.JitRuntime(port_pipeline_topo(4), None, None, None, device=CPU, mesh=object())
     with pytest.raises(NotImplementedError, match="item 11"):
         cfg.superstep(mesh=object())
-    with pytest.raises(NotImplementedError, match="Multi-worker runtime"):
-        cfg.workers(2)
-    with pytest.raises(NotImplementedError, match="Jax-free checkpoints"):
-        cfg(checkpoint=object())

@@ -3,8 +3,9 @@ neither jax nor anything of the reference package ``repro``.
 
 Pinned two ways: statically, over every import statement (top level or
 nested) in the port's sources and the chip smoke script; and at run time,
-by importing the package, running a small Real Job 3 (under ``.typed()``
-and under the compiled tier, ``.jit()``), fused ticks and a K-tick scan of
+by importing the package, running a small Real Job 3 (under ``.typed()``,
+under the compiled tier, ``.jit()``, and on a supervised two-worker cluster
+with checkpoints, a planted kill and a respawn), fused ticks and a K-tick scan of
 the fused superstep (``repro_torch.engine.superstep``) and one SMOKE decode
 tick of the serve loop for a dense, a hybrid (RG-LRU + windowed attention)
 and a MoE config in a subprocess where ``import jax`` and ``import repro``
@@ -85,6 +86,30 @@ for config in (ExecutionConfig.typed(), ExecutionConfig.jit()):
     assert eng.metrics.sink_tuples > 0 and snap.kg_load.sum() > 0
     engines.append(eng)
 typed, jit = engines
+import os
+from repro_torch.engine import CheckpointPolicy, SupervisionPolicy, make_engine
+from repro_torch.engine.faults import FaultPlan
+cfg = ExecutionConfig.workers(2, checkpoint=CheckpointPolicy(os.environ["CKDIR"], every=1),
+                              supervision=SupervisionPolicy())
+cluster = make_engine(real_job_3(keygroups_per_op=8), 4, config=cfg, service_rate=1e9,
+                      device="cpu", timeout=60.0, faults=FaultPlan.kill_at_period(1, 1))
+feed = airline_stream(StreamSpec(rate=60.0, seed=2))
+try:
+    for _ in range(2):
+        for _ in range(3):
+            k, v, ts = next(feed)
+            cluster.push_source("airline", k, v, ts)
+            cluster.tick()
+        cluster.end_period()
+    for _ in range(4):
+        cluster.tick()
+    cluster.finalize()
+finally:
+    cluster.close()
+assert [r.gave_up for r in cluster.recoveries] == [False] and cluster.metrics.sink_tuples > 0
+assert sorted((life["worker"], life["died"]) for life in cluster.worker_stats) == [
+    (0, False), (1, False), (1, True)]
+assert sorted(os.listdir(os.environ["CKDIR"]))
 assert jit.metrics.jit_calls > 0 and jit.metrics.jit_host_syncs == jit.metrics.jit_calls
 assert jit.metrics.sink_tuples == typed.metrics.sink_tuples
 assert [list(s) for _, s in jit.store.items()] == [list(s) for _, s in typed.store.items()]
@@ -137,9 +162,10 @@ print("OK", eng.metrics.sink_tuples)
 """
 
 
-def test_port_runs_with_jax_and_reference_unimportable():
+def test_port_runs_with_jax_and_reference_unimportable(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
+    env["CKDIR"] = str(tmp_path / "ck")
     out = subprocess.run(
         [sys.executable, "-c", _SUBPROCESS],
         env=env,
