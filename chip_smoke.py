@@ -38,7 +38,7 @@ error or mismatch:
    few microseconds on the card can take longer than that on the host;
 3. the engine path at full size: Real Job 3 (airline → extract → sumdelay →
    routedelay) with 1000 key groups per operator on 16 nodes, one 2^20-tuple
-   airline batch per tick for 20 ticks, every routed hop through both
+   airline batch per tick for 10 ticks, every routed hop through both
    routing kernels; the first 3 ticks are held bit-identical (sink counts
    and every key group's state) to the port's own ``device="cpu"`` engine
    on the same batches, tuple counts are conserved, and tuples/s and the
@@ -54,6 +54,21 @@ error or mismatch:
    seconds apart, host↔device copies and bytes, the busy share, and
    ``keyed_running_sum``'s device and host ms per call at the steady
    segment size (3 rounds);
+3r. Real Jobs 1 and 4 at phase 3's deployment (1000 key groups per
+   operator, 16 nodes; 2^20 wiki or airline tuples a tick, weather at a
+   quarter of that) under ``.typed()`` for 6 ticks and the drain: job 1
+   (wiki → geohash → windowed TopK, top 10, windows of 1 tick → global
+   TopK) held bit-identical to the port's ``device="cpu"`` engine on every
+   tick, job 4 (job 3 + weather → rainscore → join → efficiency → store) on
+   the first 4 (sink outputs in order, state bytes, counts, arrivals), one
+   key group of job 4's join moved (redirect → serialize → install) with
+   blob bytes equal to the CPU engine's, tuple counts conserved, each hop's
+   kernel batches held to the hop's key type (integer keys through both
+   routing kernels; the geohash strings, the one global key group and the
+   join's object records hashed on the host, as in the reference); job 4
+   again under ``.jit()`` against the card's ``.typed()`` run (integers,
+   keys and insertion order exactly, floats at rtol 1e-9); tuples/s and the
+   busy share of 3 more ticks;
 3s. the fused superstep (``ExecutionConfig.superstep()``) on the
    benchmark's record pipeline (``benchmarks/engine_throughput.py``'s
    record stages and counting sink at depth 4, ported) at phase 3's size:
@@ -79,7 +94,7 @@ error or mismatch:
 3w. the supervised multi-worker runtime (``repro_torch.engine.cluster``) at
    phase 3's size, in a fresh interpreter (``--workers``: the coordinator
    forks card workers, so it makes no CUDA call until its pools are
-   closed): (a) ``.workers(4)`` driven in lockstep over 8 batches and the
+   closed): (a) ``.workers(4)`` driven in lockstep over 6 batches and the
    drain, every field ``tests/conformance.py`` pins for ``+workers`` held
    against the single-process card engine on the same batches (sink
    outputs and their order, state bytes, counts, arrivals exactly;
@@ -107,6 +122,23 @@ error or mismatch:
    tables and states must then agree (under ``.jit()`` floats at rtol
    1e-9, and every migrated key group of a table operator must have left
    the device columns);
+4s. the skew path: ``benchmarks/skew_grid.py``'s job (events → agg →
+   total, both stateful stages split-mergeable), ported.  (a) The
+   ``flash_crowd`` scenario (Zipf 0.8, the top 2 keys boosted 16x from tick
+   16) at 2^20 tuples a tick over 2^20 keys, 1000 key groups per operator,
+   16 nodes, ``ExecutionConfig.split(4)``, 24 ticks: after the surge the 4
+   hottest key groups of agg and total split, a replica moves to another
+   node, and after the drain every family folds back; every tick's counts,
+   arrivals and routing table, every key group's state bytes before and at
+   the surge, around the split and the move and after the drain, the blob,
+   the merged states and the sink totals held bit-identical to the CPU
+   engine on the same batches, the totals equal to the events fed; ``hot_key_summary`` and
+   ``max_kg_share`` before and after the split.  (b) ``skew_grid.episode``
+   at its full sizes on ``flash_crowd`` for ALBIC with ``HotKeySplitter``
+   under ``.split(4)``, COLA, Flux and PoTC: each period's snapshot held
+   against the CPU engine's, each plan solved once on the card engine's
+   snapshot and applied to both, whose tables, families and states must
+   agree; each balancer's ``imbalance`` and ``migcost`` as the grid's row;
 5. the LM path at full width: GLM-4-9B (40 layers, d_model 4096, vocab
    151,552; ``max_seq_len`` cut to 4,096, the context) with random bf16
    weights from a seeded generator on the card; 8 prompts of 2,048 tokens
@@ -141,7 +173,8 @@ error or mismatch:
    per slot); the weights of the earlier models are freed first;
 
 then one JSON line listing the kernels with their launches on the paths
-that run them (phases 3, 3j, 3s, 3w and 4 for routing, 5-8 for the LM kernels), times,
+that run them (phases 3, 3j, 3r, 3s, 3w, 4 and 4s for routing, 5-8 for the LM
+kernels), times,
 bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
 and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
 without CUDA, and outside a checkout that holds ``src/repro_torch``.
@@ -176,7 +209,9 @@ SRC = ROOT / "src"
 BATCH = 1 << 20
 NODES = 16
 KGS = 1000
-TICKS = 20
+# 10 ticks (20 until phases 3r and 4s joined the script: each phase runs
+# whole 2^20-tuple batches, and the script keeps to its time limit).
+TICKS = 10
 CHECK_TICKS = 3
 DRAIN_TICKS = 4
 CTL_KGS, CTL_NODES, CTL_RATE, CTL_TICKS, CTL_PERIODS = 30, 8, 220.0, 10, 6
@@ -394,7 +429,8 @@ def partition_inputs(dev, count: int = 8) -> dict[str, list]:
         "int32": [
             torch.randint(-(2**31), 2**31 - 1, (BATCH,), dtype=torch.int64, generator=gen)
             .to(torch.int32).to(dev) for _ in range(count)],
-        "airline": [torch.from_numpy(k).to(dev) for k, _, _ in airline_batches(count, BATCH, SEED)],
+        "airline": [torch.from_numpy(k).to(dev)
+                    for k, _, _ in source_batches("airline", count, BATCH, SEED)],
     }
 
 
@@ -1123,16 +1159,19 @@ def moe_row_threshold(dev, gen, e: int, d_model: int, d_ff: int, reps: int) -> l
 
 
 # --------------------------------------------------------------------- phase 3
-def airline_batches(count: int, size: int, seed: int):
-    """``count`` airline batches of exactly ``size`` tuples each."""
-    from repro_torch.data import StreamSpec, airline_stream
+def source_batches(kind: str, count: int, size: int, seed: int):
+    """``count`` batches of exactly ``size`` tuples each from one of the
+    port's dataset streams (``airline``, ``wiki`` or ``weather``)."""
+    from repro_torch.data import synthetic
 
-    spec = StreamSpec(rate=size + 8 * size**0.5 + 64, fluctuation=0.0, seed=seed)
-    stream = airline_stream(spec)
+    make = {"airline": synthetic.airline_stream, "wiki": synthetic.wiki_edit_stream,
+            "weather": synthetic.weather_stream}[kind]
+    spec = synthetic.StreamSpec(rate=size + 8 * size**0.5 + 64, fluctuation=0.0, seed=seed)
+    stream = make(spec)
     out = []
     for _ in range(count):
         k, v, ts = next(stream)
-        check(len(k) >= size, "airline stream produced a short batch")
+        check(len(k) >= size, f"{kind} stream produced a short batch")
         out.append((k[:size], v[:size], ts[:size]))
     return out
 
@@ -1167,18 +1206,20 @@ def states_close(a: list, b: list) -> bool:
     return len(a) == len(b) and all(_close(x, y) for x, y in zip(a, b))
 
 
-def profile_ticks(eng, batches) -> dict:
+def profile_ticks(eng, feeds) -> dict:
     """The device's busy share of steady ticks (push + tick each): the
     ticks run once plain, timed on the host clock, and once more under
     torch.profiler, whose device events (every kernel, copy and memset)
     give the busy time; busy over the plain wall time is the share (the
-    profiled wall time, inflated by the profiler, is given apart)."""
+    profiled wall time, inflated by the profiler, is given apart).  Each
+    feed is a tick's ``(keys, values, ts)`` batches by source operator."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     def ticks():
-        for k, v, ts in batches:
-            eng.push_source("airline", k, v, ts)
+        for feed in feeds:
+            for op, (k, v, ts) in feed.items():
+                eng.push_source(op, k, v, ts)
             eng.tick()
         torch.cuda.synchronize()
 
@@ -1192,7 +1233,7 @@ def profile_ticks(eng, batches) -> dict:
         wall_prof = time.perf_counter() - t0
     rows = device_kernels(prof)
     busy = sum(r[0] for r in rows) / 1e6
-    return dict(ticks=len(batches), wall_s=wall, busy_s=busy,
+    return dict(ticks=len(feeds), wall_s=wall, busy_s=busy,
                 busy_share=busy / wall if rows else None, profiled_wall_s=wall_prof,
                 top=[(k, round(us / 1e3, 3), n) for us, k, n in rows[:8]])
 
@@ -1283,7 +1324,7 @@ def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks
     config = config or ExecutionConfig.typed()
     jit = config.use_fn_jit
     tag = "engine/jit" if jit else "engine"
-    batches = airline_batches(ticks, batch, SEED)
+    batches = source_batches("airline", ticks, batch, SEED)
 
     def make(device):
         eng = Engine(
@@ -1413,7 +1454,7 @@ def run_engine(dev, *, batch: int, kgs: int, nodes: int, ticks: int, check_ticks
         # profiled ticks below go on mutating the store's dicts).
         res.update(counts=counts, arrivals=arrivals,
                    states=pickle.loads(pickle.dumps(states, protocol=pickle.HIGHEST_PROTOCOL)))
-    prof = profile_ticks(gpu, batches[:3])
+    prof = profile_ticks(gpu, [{"airline": b} for b in batches[:3]])
     res["profile"] = prof
     res["host_profile"] = host_profile(gpu, batches[3:5])
     log(f"[{tag}] host cProfile of 2 steady ticks, cumulative s (calls): {res['host_profile']}")
@@ -1896,6 +1937,559 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
     return res
 
 
+# --------------------------------------------------------------------- phase 3r
+# Real Jobs 1 and 4 at phase 3's deployment: 1000 key groups per operator,
+# 16 nodes, 2^20-tuple wiki and airline batches a tick, weather at a
+# quarter of that (benchmarks/real_jobs.py:296-300).
+RJ_TICKS = 6
+# Job 1's TopK window, in ticks of stream time (every tuple of tick t has ts
+# t): topk closes windows at ts 1 to 5, global_topk (whose window opens at
+# ts 1) at 2 to 5, so four windows reach the sink within the 6 ticks.
+RJ_WINDOW = 1.0
+RJ_TOPK = 10
+RJ_DRAIN = {"job1": 4, "job4": 6}  # each job's depth in hops
+# Ticks held against the CPU engine: all of job 1's (its windows close
+# late), the first 4 of job 4's (its join first holds state at tick 2).
+RJ_CHECK = {"job1": RJ_TICKS + RJ_DRAIN["job1"], "job4": 4}
+RJ_MIG_TICK = 3  # job 4's join key group: redirect before this tick, install after it
+# Hops whose partition key is not an integer, hashed on the host in both
+# packages (Python's per-interpreter salted ``hash`` of each string or
+# record): job 1's geohash strings and its one "global" key group, job 4's
+# join over object records.  Every other hop takes keygroup_partition.
+# The CPU and CUDA tests of the port read this table too.
+HOST_HASHED = {"job1": ("topk", "global_topk"), "job4": ("join",)}
+
+
+def real_job_feeds(job: str, ticks: int, batch: int) -> list[dict]:
+    """Each tick's source batches, by source operator."""
+    if job == "job1":
+        return [{"wiki": b} for b in source_batches("wiki", ticks, batch, SEED)]
+    air = source_batches("airline", ticks, batch, SEED)
+    wx = source_batches("weather", ticks, batch // 4, SEED)
+    return [{"airline": a, "weather": w} for a, w in zip(air, wx)]
+
+
+def real_job_topology(job: str, kgs: int):
+    from repro_torch.data.jobs import make_real_job_1, real_job_4
+
+    if job == "job1":
+        return make_real_job_1(keygroups_per_op=kgs, topk=RJ_TOPK, window_ticks=RJ_WINDOW)
+    return real_job_4(keygroups_per_op=kgs)
+
+
+def hop_kernels(eng) -> dict:
+    """Per destination operator: (routed batches, keygroup_partition
+    batches, radix_sort batches)."""
+    m = eng.metrics
+    return {spec.name: (m.routed_batches.get(op, 0), m.partition_kernel_batches.get(op, 0),
+                        m.sort_kernel_batches.get(op, 0))
+            for op, spec in enumerate(eng.topology.operators)}
+
+
+def sinks_close(a: list, b: list) -> bool:
+    """Sink outputs in the same order, each equal or (its floats) within
+    JIT_RTOL; the exact comparison first, as most are equal."""
+    return len(a) == len(b) and all(x == y or _close(x, y) for x, y in zip(a, b))
+
+
+def run_real_job(dev, job: str, *, batch: int, kgs: int, nodes: int, config=None,
+                 typed=None) -> dict:
+    """One real job on the card for ``RJ_TICKS`` ticks plus its drain.
+    Under ``.typed()`` the first ``RJ_CHECK[job]`` ticks are held
+    bit-identical to the port's CPU engine on the same batches (sink
+    outputs in order, every key group's state bytes, tuple counts, arrival
+    histograms), and job 4's join moves one key group (redirect, serialize,
+    install) with blob bytes equal to the CPU engine's.  With ``typed`` (a
+    ``.typed()`` run's result) the same ticks' sink outputs, every tick's
+    counts, the arrivals and the states are held against it (floats at
+    JIT_RTOL).  Both runs collect sink outputs over the same ticks."""
+    import torch
+
+    from repro_torch.engine import Engine, ExecutionConfig
+
+    config = config or ExecutionConfig.typed()
+    jit = config.use_fn_jit
+    tag = f"realjobs/{job}" + ("/jit" if jit else "")
+    ticks, drain, check_ticks = RJ_TICKS, RJ_DRAIN[job], RJ_CHECK[job]
+    feeds = real_job_feeds(job, ticks, batch)
+
+    def make(device):
+        eng = Engine(real_job_topology(job, kgs), nodes, config=config, service_rate=1e12,
+                     seed=SEED, collect_sinks=True, device=device)
+        eng.backpressure.full_credit = 2 * batch
+        return eng
+
+    gpu = make(dev)
+    cpu = make("cpu") if typed is None else None
+    mig = job == "job4"  # (key group, destination) once the join holds state
+    admitted = dict.fromkeys(feeds[0], 0)
+    counts, sinks, blob = [], [], None
+    t_gpu = 0.0
+    for t in range(ticks + drain):
+        feed = feeds[t] if t < ticks else {}
+        engines = [gpu] + ([cpu] if cpu is not None else [])
+        if mig and t == RJ_MIG_TICK:
+            # The join key group with the largest state (its airports'
+            # latest rainscores, from tick 2): its blob also ships the
+            # flights queued for it.
+            base = gpu.topology.kg_base(gpu.topology._resolve("join"))
+            kg = max(range(base, base + kgs), key=lambda g: len(gpu.store.get(g).get("rain", ())))
+            mig = (kg, (gpu.router.node_of(kg) + 1) % nodes)
+            for eng in engines:
+                eng.redirect(*mig)
+        t0 = time.perf_counter()
+        for op, (k, v, ts) in feed.items():
+            n = gpu.push_source(op, k, v, ts)
+            check(n == len(k), f"{tag} tick {t}: admitted {n} of {len(k)} {op} tuples")
+            admitted[op] += n
+        gpu.tick()
+        torch.cuda.synchronize()
+        t_gpu += time.perf_counter() - t0
+        m = gpu.metrics
+        counts.append((m.sink_tuples, m.processed_tuples, m.emitted_tuples))
+        if typed is not None:
+            check(counts[t] == typed["counts"][t],
+                  f"{tag} tick {t}: counts {counts[t]} differ from .typed()'s "
+                  f"{typed['counts'][t]}")
+        if cpu is not None:
+            for op, (k, v, ts) in feed.items():
+                cpu.push_source(op, k, v, ts)
+            cpu.tick()
+        if mig and t == RJ_MIG_TICK:
+            blobs = [eng.serialize(mig[0]) for eng in engines]
+            check(len(blobs) == 1 or blobs[0] == blobs[1],
+                  f"{tag}: join key group {mig[0]}'s blob differs from the CPU engine's")
+            blob = len(blobs[0])
+            for eng, b in zip(engines, blobs):
+                eng.install(mig[0], mig[1], b)
+            log(f"[{tag}] moved join key group {mig[0]} to node {mig[1]}: {blob}-byte "
+                "blob" + (" == the CPU engine's" if len(blobs) == 2 else ""))
+        if cpu is not None:
+            mc = cpu.metrics
+            check((mc.sink_tuples, mc.processed_tuples, mc.emitted_tuples) == counts[t],
+                  f"{tag} tick {t}: counts differ from the CPU engine")
+            check(m.sink_outputs == mc.sink_outputs,
+                  f"{tag} tick {t}: sink outputs differ from the CPU engine's")
+            check(state_bytes(gpu) == state_bytes(cpu),
+                  f"{tag} tick {t}: key-group state differs from the CPU engine")
+            check(np.array_equal(gpu.window.kg_arrivals, cpu.window.kg_arrivals),
+                  f"{tag} tick {t}: arrival histograms differ from the CPU engine")
+            log(f"[{tag}] tick {t}: card == cpu (sink_tuples={m.sink_tuples}, "
+                f"{len(m.sink_outputs)} sink outputs held)")
+            mc.sink_outputs.clear()
+        elif t < check_ticks:
+            check(sinks_close(m.sink_outputs, typed["sinks"][t]),
+                  f"{tag} tick {t}: sink outputs differ from .typed()'s beyond rtol {JIT_RTOL}")
+            log(f"[{tag}] tick {t}: {len(m.sink_outputs)} sink outputs == .typed()'s")
+        if t < check_ticks:
+            # This tick's outputs (2^20 store writes a tick in job 4), kept
+            # for the .jit() run, then dropped.
+            if typed is None:
+                sinks.append(list(m.sink_outputs))
+            m.sink_outputs.clear()
+            if t == check_ticks - 1:
+                cpu = None
+                gpu.collect_sinks = False
+    m = gpu.metrics
+    a = sum(admitted.values())
+    # No pending run (job 1's queue costs keep the float residue of its
+    # 1.2-a-tuple geohash hop, so they are not compared with 0).
+    check(not any(gpu._queues), f"{tag}: queues not drained")
+    check(m.dropped_credits == 0, f"{tag}: tuples dropped by backpressure")
+    if job == "job1":
+        # wiki, geohash and topk see every tuple; topk's window rankings
+        # (w1) go to global_topk, whose rankings are the sink's outputs.
+        w1 = m.processed_tuples - 3 * a
+        check(w1 > 0 and m.emitted_tuples == 2 * a + w1 + m.sink_tuples,
+              f"{tag}: tuples not conserved (processed {m.processed_tuples}, emitted "
+              f"{m.emitted_tuples}, sink {m.sink_tuples}, admitted {a})")
+        if typed is None:
+            outputs = [o for tick in sinks for o in tick]
+            check(m.sink_tuples >= 2 and len(outputs) == m.sink_tuples,
+                  f"{tag}: {m.sink_tuples} global TopK windows closed, expected >= 2")
+            tops = [v["top"] for _, v, _ in outputs]
+            check(all(len(x) == RJ_TOPK for x in tops), f"{tag}: a ranking is short")
+            check(all(x[i][1] >= x[i + 1][1] for x in tops for i in range(RJ_TOPK - 1)),
+                  f"{tag}: a global TopK ranking is not sorted")
+    else:
+        air, wx = admitted["airline"], admitted["weather"]
+        # airline, extract, sumdelay, routedelay, join, efficiency and store
+        # see every flight; weather, rainscore and join every observation.
+        check(m.processed_tuples == 7 * air + 3 * wx
+              and m.emitted_tuples == 6 * air + 2 * wx and m.sink_tuples == air,
+              f"{tag}: tuples not conserved (processed {m.processed_tuples}, emitted "
+              f"{m.emitted_tuples}, sink {m.sink_tuples}; {air} flights, {wx} observations)")
+    hops = hop_kernels(gpu)
+    host = HOST_HASHED.get(job, ())
+    for name, (routed, part, srt) in hops.items():
+        check(routed > 0, f"{tag}: no batch routed to {name}")
+        check(part == (0 if name in host else routed),
+              f"{tag}: {name} took keygroup_partition on {part} of {routed} batches")
+        check(srt > 0 or name == "global_topk", f"{tag}: {name} never went through radix_sort")
+    check(hops.get("global_topk", (0, 0, 0))[2] == 0,
+          f"{tag}: global_topk (one key group) launched radix_sort")
+    arrivals = gpu.window.kg_arrivals.copy()
+    snap = gpu.end_period()
+    check(np.isfinite(snap.kg_load).all(), f"{tag}: non-finite key-group load")
+    states = synced_states(gpu)
+    if typed is not None:
+        check(np.array_equal(arrivals, typed["arrivals"]),
+              f"{tag}: arrival histograms differ from .typed()'s")
+        check(states_close(states, typed["states"]),
+              f"{tag}: key-group state differs from .typed()'s beyond rtol {JIT_RTOL}")
+        check(m.jit_calls > 0 and m.jit_host_syncs == m.jit_calls,
+              f"{tag}: jit_calls {m.jit_calls}, jit_host_syncs {m.jit_host_syncs}")
+        log(f"[{tag}] counts of every tick, arrival histograms and states == .typed()'s; "
+            f"jit_calls={m.jit_calls} jit_compiles={m.jit_compiles}")
+    else:
+        check(m.jit_calls == 0, f"{tag}: .typed() made jit calls")
+    tps = a / t_gpu
+    res = {"tuples_per_s": tps, "seconds": t_gpu, "admitted": admitted, "hops": hops,
+           "device_route_seconds": m.device_route_seconds,
+           "host_device_copies": m.host_device_copies, "blob_bytes": blob}
+    log(f"[{tag}] kgs/op={kgs} nodes={nodes} {admitted} in {ticks} ticks + {drain} drain "
+        f"ticks ({t_gpu:.3f} s) = {tps:.0f} tuples/s; device round trips "
+        f"{m.device_route_seconds:.3f} s; hops (routed, keygroup_partition, radix_sort) "
+        f"{hops}")
+    if typed is None:
+        res.update(counts=counts, sinks=sinks, arrivals=arrivals,
+                   states=pickle.loads(pickle.dumps(states, protocol=pickle.HIGHEST_PROTOCOL)))
+    gpu.collect_sinks = False
+    prof = profile_ticks(gpu, feeds[:3])
+    res["profile"] = prof
+    share = prof["busy_share"]
+    log(f"[{tag}] {prof['ticks']} more ticks: wall {prof['wall_s']:.3f} s, device busy "
+        f"{prof['busy_s'] * 1e3:.3f} ms ("
+        + ("not measured" if share is None else f"{100 * share:.3f} %")
+        + f"); top device events (ms, count): {prof['top']}")
+    return res
+
+
+def run_real_jobs(dev, *, batch: int = BATCH, kgs: int = KGS, nodes: int = NODES) -> dict:
+    """Phase 3r: job 1 and job 4 under ``.typed()``, job 4 again under
+    ``.jit()`` against the card's ``.typed()`` run."""
+    from repro_torch.engine import ExecutionConfig
+
+    size = dict(batch=batch, kgs=kgs, nodes=nodes)
+    out = {}
+    for job in ("job1", "job4"):
+        out[job] = run_real_job(dev, job, **size)
+    typed = out["job4"]
+    out["job4_jit"] = run_real_job(dev, "job4", **size, config=ExecutionConfig.jit(),
+                                   typed=typed)
+    for r in out.values():
+        for key in ("counts", "sinks", "arrivals", "states"):
+            r.pop(key, None)
+    out["job4_jit_vs_typed"] = out["job4_jit"]["tuples_per_s"] / typed["tuples_per_s"]
+    return out
+
+
+# --------------------------------------------------------------------- phase 4s
+# The skew path: benchmarks/skew_grid.py's job (events → agg → total, both
+# stateful stages split-mergeable), ported.
+SKEW_SPLIT = 4
+SKEW_TICKS = 24
+SKEW_SURGE = 16  # make_scenario("flash_crowd"): the top 2 keys boosted 16x from here
+SKEW_SPLIT_TICK = 18  # split after this tick's end_period (the surge's first two ticks)
+SKEW_MOVE_TICK = 20  # a replica: redirect before this tick, install after it
+SKEW_SPLITS = 4  # hottest key groups of agg and total split (3 reserve slots each)
+SKEW_STATE_TICKS = (SKEW_SURGE - 1, SKEW_SPLIT_TICK - 1, SKEW_SPLIT_TICK, SKEW_MOVE_TICK,
+                    SKEW_TICKS - 1, SKEW_TICKS + 1)
+# skew_grid.episode's sizes (skew_grid.py:209-212) for the controller runs.
+SG_NODES, SG_KGS, SG_PERIODS, SG_TICKS, SG_RATE, SG_KEYS = 12, 32, 10, 12, 384.0, 2048
+SG_MAX_MIGR = 13
+
+
+def bench_seed(*salt) -> int:
+    """``benchmarks/common.py``'s ``bench_seed`` at the default root seed 0
+    (crc32 salts through a SeedSequence), so the scenarios are the grid's."""
+    import zlib
+
+    parts = [zlib.crc32(str(x).encode()) for x in salt]
+    return int(np.random.SeedSequence([0, *parts]).generate_state(1)[0])
+
+
+def _merge_counts(a: dict, b: dict) -> dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+def _skew_agg(state, keys, values, ts):
+    for k in keys.tolist():
+        state[k] = state.get(k, 0) + 1
+    return state, (keys, np.ones(len(keys), dtype=np.int64), ts)
+
+
+def _skew_total(state, keys, values, ts):
+    for k, v in zip(keys.tolist(), values.tolist()):
+        state[k] = state.get(k, 0) + v
+    return state, None
+
+
+def skew_job(kgs: int):
+    """``benchmarks/skew_grid.py``'s ``skew_job``: events → agg (count
+    deltas) → total, both stateful stages declaring ``merge_state``."""
+    from repro_torch.engine.topology import OperatorSpec, Topology
+
+    t = Topology()
+    t.add_operator(OperatorSpec("events", None, num_keygroups=kgs, is_source=True,
+                                cost_per_tuple=0.05))
+    t.add_operator(OperatorSpec("agg", _skew_agg, num_keygroups=kgs,
+                                merge_state=_merge_counts))
+    t.add_operator(OperatorSpec("total", _skew_total, num_keygroups=kgs, is_sink=True,
+                                cost_per_tuple=0.5, merge_state=_merge_counts))
+    t.connect("events", "agg")
+    t.connect("agg", "total")
+    return t
+
+
+def layer_totals(eng, name: str) -> dict:
+    """An operator's state folded over its key groups and their replicas."""
+    op = eng.topology._resolve(name)
+    base = eng.topology.kg_base(op)
+    kgs = list(range(base, base + eng.topology.operators[op].num_keygroups))
+    for parent, slots in eng.split_families().items():
+        if parent in kgs:
+            kgs.extend(slots)
+    out = {}
+    for kg in kgs:
+        for k, v in eng.store.get(kg).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def run_skew_data_plane(dev, *, batch: int, key_space: int, kgs: int, nodes: int) -> dict:
+    """Phase 4s (a): the flash crowd at full size under ``.split(4)``; every
+    tick's counts, arrivals and routing, the states at ``SKEW_STATE_TICKS``,
+    the split, a replica's move, the unsplit's merged state and the sink
+    totals held bit-identical to the CPU engine on the same batches."""
+    import torch
+
+    from repro_torch.engine import Engine, ExecutionConfig
+    from repro_torch.engine.executor import hot_key_summary
+    from repro_torch.workloads import make_scenario, scenario_batches
+
+    tag = "skew"
+    spec = make_scenario("flash_crowd", rate=float(batch), key_space=key_space,
+                         seed=bench_seed("skew_grid", "flash_crowd"))
+    t0 = time.perf_counter()
+    batches = scenario_batches(spec, SKEW_TICKS)
+    gen_s = time.perf_counter() - t0
+
+    def make(device):
+        eng = Engine(skew_job(kgs), nodes, config=ExecutionConfig.split(SKEW_SPLIT),
+                     service_rate=1e12, seed=SEED, collect_sinks=False, device=device)
+        eng.backpressure.full_credit = 4 * batch
+        return eng
+
+    gpu, cpu = make(dev), make("cpu")
+    engines = (gpu, cpu)
+    admitted, t_gpu, hot, families, move = 0, 0.0, {}, {}, None
+    for t in range(SKEW_TICKS + 2):
+        k, v, ts = batches[t] if t < SKEW_TICKS else (None, None, None)
+        fed = k is not None and len(k) > 0
+        if move and t == SKEW_MOVE_TICK:
+            for eng in engines:
+                eng.redirect(*move)
+        # The card engine's push (the source hop's routing) and tick are
+        # timed together, as in phases 3 and 3r; the CPU engine's after.
+        for eng in engines:
+            t0 = time.perf_counter()
+            if fed:
+                n = eng.push_source("events", k, v, ts)
+                check(n == len(k), f"{tag} tick {t}: admitted {n} of {len(k)} tuples")
+            eng.tick()
+            if eng is gpu:
+                torch.cuda.synchronize()
+                t_gpu += time.perf_counter() - t0
+        admitted += len(k) if fed else 0
+        if move and t == SKEW_MOVE_TICK:
+            blobs = [eng.serialize(move[0]) for eng in engines]
+            check(blobs[0] == blobs[1], f"{tag}: replica {move[0]}'s blob differs from the "
+                  "CPU engine's")
+            for eng, b in zip(engines, blobs):
+                eng.install(move[0], move[1], b)
+            log(f"[{tag}] moved replica {move[0]} to node {move[1]}: {len(blobs[0])}-byte "
+                "blob == the CPU engine's")
+        m, mc = gpu.metrics, cpu.metrics
+        check((m.processed_tuples, m.emitted_tuples, m.sink_tuples, m.cross_node_tuples)
+              == (mc.processed_tuples, mc.emitted_tuples, mc.sink_tuples,
+                  mc.cross_node_tuples)
+              and np.array_equal(gpu.window.kg_arrivals, cpu.window.kg_arrivals),
+              f"{tag} tick {t}: counts or arrivals differ from the CPU engine")
+        check(np.array_equal(gpu.router.table, cpu.router.table),
+              f"{tag} tick {t}: routing tables differ")
+        if t in SKEW_STATE_TICKS:
+            # Every key group's state bytes (a few seconds a comparison at
+            # 2^20 keys): before and at the surge, around the split and the
+            # move, and after the drain.
+            check(state_bytes(gpu) == state_bytes(cpu),
+                  f"{tag} tick {t}: key-group state differs from the CPU engine")
+        if t in (SKEW_SURGE - 1, SKEW_SPLIT_TICK - 1, SKEW_TICKS - 1):
+            when = {SKEW_SURGE - 1: "before the surge", SKEW_SPLIT_TICK - 1: "surge, unsplit",
+                    SKEW_TICKS - 1: "surge, split"}[t]
+            snaps = [eng.end_period() for eng in engines]
+            check(np.array_equal(snaps[0].kg_load, snaps[1].kg_load)
+                  and m.hot_keygroups == mc.hot_keygroups
+                  and m.max_kg_share == mc.max_kg_share,
+                  f"{tag} tick {t}: snapshot or hot-key gauges differ from the CPU engine")
+            arr = snaps[0].kg_tuple_rate
+            splittable = np.array([gpu.topology.operators[int(o)].merge_state is not None
+                                   for o in gpu._kg_op[:len(arr)]])
+            stop, sshare = hot_key_summary(np.where(splittable, arr, 0.0))
+            hot[when] = dict(hot_keygroups=m.hot_keygroups, max_kg_share=m.max_kg_share,
+                             splittable_top=stop, splittable_share=sshare)
+            log(f"[{tag}] {when} (tick {t}): hot_key_summary {m.hot_keygroups}, "
+                f"max_kg_share {m.max_kg_share:.6f}; agg/total layers only: top {stop[:4]}, "
+                f"share {sshare:.6f}")
+            if t == SKEW_SPLIT_TICK - 1:
+                targets = [kg for kg, _ in stop[:SKEW_SPLITS]]
+                for kg in targets:
+                    slots = [eng.split_keygroup(kg) for eng in engines]
+                    check(slots[0] == slots[1], f"{tag}: split slots differ")
+                    families[kg] = slots[0]
+                replica = families[targets[0]][0]
+                move = (replica, (gpu.router.node_of(replica) + 1) % nodes)
+                log(f"[{tag}] split {targets} x{SKEW_SPLIT}: families {families}")
+    # Unsplit every family: each parent's state is its replicas' merge.
+    before = {name: layer_totals(gpu, name) for name in ("agg", "total")}
+    for kg in families:
+        for eng in engines:
+            eng.unsplit_keygroup(kg)
+    check(not gpu.split_families() and state_bytes(gpu) == state_bytes(cpu),
+          f"{tag}: merged state after the unsplit differs from the CPU engine")
+    totals = {name: layer_totals(gpu, name) for name in ("agg", "total")}
+    check(totals == before, f"{tag}: the unsplit changed a layer's folded state")
+    check(totals == {name: layer_totals(cpu, name) for name in totals},
+          f"{tag}: sink totals differ from the CPU engine")
+    check(sum(totals["total"].values()) == admitted == sum(totals["agg"].values()),
+          f"{tag}: the sink counted {sum(totals['total'].values())} of {admitted} events")
+    m = gpu.metrics
+    hops = hop_kernels(gpu)
+    for name, (routed, part, srt) in hops.items():
+        check(routed > 0 and part == routed and srt > 0,
+              f"{tag}: {name} missed a routing kernel (routed, partition, sort) {hops}")
+    tps = admitted / t_gpu
+    log(f"[{tag}] flash_crowd x{SKEW_TICKS} ticks ({admitted} events, key space {key_space}, "
+        f"generated in {gen_s:.3f} s): card {t_gpu:.3f} s = {tps:.0f} tuples/s; hops "
+        f"(routed, keygroup_partition, radix_sort) {hops}; split families merged back, "
+        f"sink totals == CPU engine == events")
+    return {"tuples_per_s": tps, "admitted": admitted, "hot": hot, "families": families,
+            "hops": hops, "device_route_seconds": m.device_route_seconds}
+
+
+def _imbalance(loads: np.ndarray) -> float:
+    mean = float(loads.mean())
+    return 0.0 if mean <= 0.0 else (float(loads.max()) - mean) / mean
+
+
+def skew_episode(dev, balancer: str, *, split: bool) -> dict:
+    """``benchmarks/skew_grid.py``'s ``episode`` on ``flash_crowd`` with a
+    card engine and a CPU engine fed the same batches: each period's
+    snapshot held against the CPU engine's, each plan solved once on the
+    card engine's snapshot and applied to both, whose routing tables,
+    split families and states must then agree."""
+    from repro_torch.core import AdaptationFramework, AlbicParams
+    from repro_torch.core.baselines import PotcSimulator, cola_allocate, flux_rebalance
+    from repro_torch.core.migration import execute_plan, plan_from_allocations
+    from repro_torch.core.splitting import HotKeySplitter
+    from repro_torch.engine import Engine, ExecutionConfig
+    from repro_torch.workloads import make_scenario, scenario_batches
+
+    name = balancer + ("+split" if split else "")
+    tag = f"skew/{name}"
+    spec = make_scenario("flash_crowd", rate=SG_RATE, key_space=SG_KEYS,
+                         seed=bench_seed("skew_grid", "flash_crowd"))
+    batches = iter(scenario_batches(spec, SG_PERIODS * SG_TICKS))
+    config = ExecutionConfig.split(SKEW_SPLIT) if split else ExecutionConfig.typed()
+    gpu, cpu = (Engine(skew_job(SG_KGS), SG_NODES, service_rate=SG_NODES * 110.0,
+                       seed=bench_seed("skew_grid", "alloc"), collect_sinks=False,
+                       config=config, device=d) for d in (dev, "cpu"))
+    engines = (gpu, cpu)
+    fw = None
+    if balancer in ("albic", "milp"):
+        fw = AdaptationFramework(mode=balancer, max_migrations=SG_MAX_MIGR, time_limit=2.0,
+                                 albic_params=AlbicParams(time_limit=1.0),
+                                 splitter=HotKeySplitter() if split else None)
+    sim = None
+    imb, migcost, splits, moves = [], [], 0, 0
+    for p in range(SG_PERIODS):
+        for _ in range(SG_TICKS):
+            keys, values, ts = next(batches)
+            for eng in engines:
+                if len(keys):
+                    eng.push_source("events", keys, values, ts)
+                eng.tick()
+        snap, snap_c = (eng.end_period() for eng in engines)
+        for field in ("kg_load", "kg_tuple_rate", "kg_state_bytes"):
+            a, b = getattr(snap, field), getattr(snap_c, field)
+            check(np.allclose(a, b, rtol=FLOAT_RTOL, atol=FLOAT_RTOL),
+                  f"{tag} period {p}: snapshot {field} differs")
+        check(np.array_equal(snap.alloc, snap_c.alloc), f"{tag} period {p}: alloc differs")
+        cost = 0.0
+        if balancer == "potc":
+            if sim is None:
+                sim = PotcSimulator(snap)
+            loads, _ = sim.step(snap.kg_load)
+            imb.append(_imbalance(loads[snap.alive]))
+            migcost.append(0.0)
+            continue
+        if p >= 1:
+            if fw is not None:
+                result = fw.adapt(snap,
+                                  split_families=gpu.split_families() if split else None,
+                                  split_eligible=gpu.split_eligible() if split else None)
+                mp = result.migration_plan
+                decision = result.split
+            else:
+                plan = (flux_rebalance(snap, max_migrations=SG_MAX_MIGR) if balancer == "flux"
+                        else cola_allocate(snap, seed=bench_seed("skew_grid", "cola", p)))
+                mp = plan_from_allocations(snap, plan.alloc)
+                decision = None
+            for eng in engines:
+                execute_plan(mp, eng)
+                if decision is not None:
+                    for kg in decision.unsplit:
+                        eng.unsplit_keygroup(kg)
+                    for kg in decision.split:
+                        if eng.split_slots_free < SKEW_SPLIT - 1:
+                            break
+                        eng.split_keygroup(kg)
+            cost = mp.total_cost
+            moves += len(mp.moves)
+            splits += 0 if decision is None else len(decision.split)
+            check(np.array_equal(gpu.router.table, cpu.router.table)
+                  and gpu.split_families() == cpu.split_families(),
+                  f"{tag} period {p}: routing tables or split families differ after the plan")
+        check(state_bytes(gpu) == state_bytes(cpu), f"{tag} period {p}: states differ")
+        loads = snap.node_loads(gpu.router.table)
+        imb.append(_imbalance(loads[gpu.alive]))
+        migcost.append(cost)
+    steady = slice(max(SG_PERIODS - 3, 1), None)
+    res = {"imbalance": float(np.mean(imb[steady])), "imbalance_max": float(np.max(imb[1:])),
+           "migcost": float(np.mean(migcost[1:])), "migrations": moves, "splits": splits}
+    log(f"[{tag}] flash_crowd {SG_PERIODS} x {SG_TICKS} ticks, {SG_NODES} nodes, "
+        f"{SG_KGS} kgs/op: "
+        f"imbalance={res['imbalance']:.3f} migcost={res['migcost']:.1f} "
+        f"imbalance_max={res['imbalance_max']:.3f} migrations={moves} splits={splits}; "
+        "card == cpu every period")
+    return res
+
+
+def run_skew(dev, *, batch: int = BATCH, key_space: int = BATCH, kgs: int = KGS,
+             nodes: int = NODES) -> dict:
+    """Phase 4s: the skew data plane at full size, then the skew grid's
+    controller runs for ALBIC with hot-key splitting, COLA, Flux and PoTC."""
+    out = {"data_plane": run_skew_data_plane(dev, batch=batch, key_space=key_space, kgs=kgs,
+                                             nodes=nodes)}
+    for balancer, split in (("albic", True), ("cola", False), ("flux", False),
+                            ("potc", False)):
+        out[balancer + ("+split" if split else "")] = skew_episode(dev, balancer, split=split)
+    return out
+
+
 # --------------------------------------------------------------------- phase 3w
 # The multi-worker runtime (repro_torch.engine.cluster) at phase 3's
 # deployment, run by ``python3 chip_smoke.py --workers`` in a fresh
@@ -1904,11 +2498,11 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
 # initialized CUDA cannot use it).  Phase 3w's own card engines (the
 # single-process references) run after that, in the same interpreter.
 W_WORKERS = 4
-W_TICKS = 8  # lockstep ticks of (a) (phase 3 runs 20), then DRAIN_TICKS
+W_TICKS = 6  # lockstep ticks of (a) (8 before phases 3r and 4s), then DRAIN_TICKS
 W_MIG_TICK = 3  # (b): redirect at this tick, serialize + install at the next
 W_FAULT_BATCH, W_FAULT_TICKS = 1 << 14, 3  # (c): the planted map, at a cut depth
 W_STREAM_WORKERS = (2, 4)  # (f)
-W_STREAM_BATCHES = 8
+W_STREAM_BATCHES = 6  # (8 before phases 3r and 4s)
 # tests/conformance.py:131-133, the +workers configuration's statistics
 # tolerance (per-worker partial sums of the usage windows).
 WORKERS_RTOL, WORKERS_ATOL = 1e-12, 1e-18
@@ -2203,7 +2797,7 @@ def run_workers_child(device: str = "cuda", *, batch: int = BATCH, kgs: int = KG
             launches[name] += eng.kernel_launches.get(name, 0)
 
     # (a) + (b): lockstep at full size, a migration from worker 0 to worker 3.
-    batches = airline_batches(ticks, batch, SEED)
+    batches = source_batches("airline", ticks, batch, SEED)
     eng = job3_engine(device, batch=batch, config=ExecutionConfig.workers(W_WORKERS), **size)
     topo = eng.topology
     sum_op = topo._resolve("sumdelay")
@@ -2223,7 +2817,7 @@ def run_workers_child(device: str = "cuda", *, batch: int = BATCH, kgs: int = KG
         f"{W_WORKERS - 1}) at ticks {W_MIG_TICK}-{W_MIG_TICK + 1}")
 
     # (c): the planted non-contiguous map, and its control, at a cut depth.
-    fault_batches = airline_batches(W_FAULT_TICKS, fault_batch, SEED + 1)
+    fault_batches = source_batches("airline", W_FAULT_TICKS, fault_batch, SEED + 1)
     small = {}
     for label, planted in (("control", False), ("planted", True)):
         with interleaved_node_workers() if planted else contextlib.nullcontext():
@@ -2282,7 +2876,7 @@ def run_workers_child(device: str = "cuda", *, batch: int = BATCH, kgs: int = KG
 
     # (f): pipelined throughput, default lanes and lanes sized for a tick.
     n_stream = stream_batches
-    stream_batches = airline_batches(n_stream, batch, SEED + 2)
+    stream_batches = source_batches("airline", n_stream, batch, SEED + 2)
     total = n_stream * batch
     free = shm_free_bytes()
     stream = {"dev_shm_free_bytes": free, "tuples": total}
@@ -3189,6 +3783,14 @@ def main() -> int:
 
         (engine, controller), _ = drive(routing, engine_paths)
         gc.collect()
+        real_jobs, counts = drive(routing, run_real_jobs, dev)
+        real_jobs["launches"] = {name: counts[name] for name in routing}
+        log(f"[realjobs] phase 3r routing launches {real_jobs['launches']}")
+        gc.collect()
+        skew, counts = drive(routing, run_skew, dev)
+        skew["launches"] = {name: counts[name] for name in routing}
+        log(f"[skew] phase 4s routing launches {skew['launches']}")
+        gc.collect()
         torch.cuda.empty_cache()
         superstep, counts = drive(routing, run_superstep, dev, card)
         superstep["launches"] = {name: counts[name] for name in routing}
@@ -3212,8 +3814,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"[summary] engine {engine}; controller {controller}; superstep {superstep}; "
-        f"workers {workers}; "
+    log(f"[summary] engine {engine}; controller {controller}; real jobs {real_jobs}; "
+        f"skew {skew}; superstep {superstep}; workers {workers}; "
         f"lm {lm}; serve {served}; "
         f"{time.perf_counter() - t_start:.1f} s total")
     rows = [dict(name=name, launches=launches[name], **kernels[name]) for name in kernels]

@@ -8,6 +8,7 @@ Public surface:
   + integrated scale-in) over migration units.
 * :func:`repro_torch.core.albic.albic` — Algorithm 2 (collocation on top of MILP).
 * :class:`repro_torch.core.framework.AdaptationFramework` — Algorithm 1.
+* :mod:`repro_torch.core.baselines` — Flux, PoTC, COLA comparison points.
 """
 
 from repro_torch.core.albic import AlbicParams, AlbicResult, albic

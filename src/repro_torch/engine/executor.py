@@ -218,6 +218,12 @@ class Engine:
     ) -> None:
         if config is None:
             config = ExecutionConfig()
+        if config.num_workers > 1:
+            raise ValueError(
+                "ExecutionConfig.workers(n) selects the multi-worker runtime: "
+                "construct repro_torch.engine.cluster.ClusterEngine (or use "
+                "repro_torch.engine.make_engine) instead of Engine"
+            )
         self.config = config
         self.device = resolve_device(device)
         queue_impl = config.queue_impl

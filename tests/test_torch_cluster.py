@@ -430,6 +430,30 @@ def test_add_nodes_stays_monotone_and_carries_traffic():
     assert eng.metrics.sink_tuples == accepted + accepted2
 
 
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_engine_refuses_workers_config_and_make_engine_builds_a_cluster(pkg):
+    """``Engine`` refuses ``ExecutionConfig.workers(n)`` in both packages
+    (naming the cluster and ``make_engine``); ``make_engine`` still builds
+    the multi-worker ``ClusterEngine`` for it."""
+    if pkg == "ref":
+        eng_mod, cluster_mod, topo, kw = ref_engine, ref_cluster, make_pipeline_topo, {}
+        cfg = RefConfig.workers(2, shm=0)
+    else:
+        eng_mod, cluster_mod, topo, kw = port_engine, port_cluster, port_pipeline_topo, {
+            "device": "cpu"}
+        cfg = PortConfig.workers(2)
+    with pytest.raises(ValueError, match=rf"{eng_mod.__name__}\.make_engine"):
+        eng_mod.Engine(topo(KGS), 4, config=cfg, **kw)
+    eng = eng_mod.make_engine(topo(KGS), 4, config=cfg, timeout=TIMEOUT, **kw)
+    try:
+        assert isinstance(eng, cluster_mod.ClusterEngine)
+        assert eng.num_workers == 2
+    finally:
+        eng.close()
+    single = eng_mod.make_engine(topo(KGS), 4, config=cfg.__class__.typed(), **kw)
+    assert type(single) is eng_mod.Engine
+
+
 def test_close_terminates_worker_processes():
     eng = port_cluster_engine()
     procs = list(eng.pool.processes)

@@ -2,7 +2,9 @@
 
 The routing kernels are held bit-exact against their plain PyTorch versions
 (integer outputs: no tolerance) at the engine's shapes, and a small Real
-Job 3 run on the card against the port's CPU engine.  The attention kernels
+Job 3 run on the card against the port's CPU engine, Real Jobs 1 and 4 (each
+hop's kernel coverage by its key type) and a hot-key split, replica move
+and unsplit likewise.  The attention kernels
 are held against their plain versions at small shapes, in bf16 and f32, at
 ``tests/test_kernels.py``'s tolerances (f32 3e-5; bf16 3e-2, which also
 covers the flash kernel's bf16 rounding of P before P·V), and one GLM-4-9B
@@ -286,6 +288,116 @@ def test_engine_on_card_matches_cpu(cuda):
         pickle.dumps(s) for _, s in cpu.store.items()
     ]
     assert np.array_equal(gpu.window.kg_arrivals, cpu.window.kg_arrivals)
+    assert gpu.metrics.partition_kernel_batches == gpu.metrics.routed_batches
+
+
+@pytest.mark.parametrize("job", ["job1", "job4"])
+def test_real_job_on_card_matches_cpu(cuda, job):
+    """Real Jobs 1 and 4 for a few ticks on the card against ``device="cpu"``:
+    sink outputs in order, state bytes and arrivals equal; every hop with
+    integer keys partitioned by the kernel, the host-hashed ones (geohash
+    strings, the global key group, the join's records) not; both kernels
+    launched."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import HOST_HASHED
+    from repro_torch.data import StreamSpec, airline_stream, weather_stream, wiki_edit_stream
+    from repro_torch.data.jobs import make_real_job_1, real_job_4
+    from repro_torch.engine import Engine
+
+    def topo():
+        if job == "job1":
+            return make_real_job_1(keygroups_per_op=50, window_ticks=2.0)
+        return real_job_4(keygroups_per_op=50)
+
+    engines = [Engine(topo(), 8, service_rate=1e9, device=d) for d in ("cuda", "cpu")]
+    if job == "job1":
+        feeds = {"wiki": wiki_edit_stream(StreamSpec(rate=3000.0, seed=1))}
+    else:
+        feeds = {"airline": airline_stream(StreamSpec(rate=3000.0, seed=1)),
+                 "weather": weather_stream(StreamSpec(rate=750.0, seed=1))}
+    reset_launch_counts()
+    for t in range(12):
+        batches = [next(it) for it in feeds.values()] if t < 7 else []
+        for eng in engines:
+            for op, batch in zip(feeds, batches):
+                eng.push_source(op, *batch)
+            eng.tick()
+    gpu, cpu = engines
+    counts = launch_counts()
+    assert counts["keygroup_partition"] > 0 and counts["radix_sort"] > 0
+    assert gpu.metrics.sink_tuples > 0
+    assert gpu.metrics.sink_outputs == cpu.metrics.sink_outputs
+    assert [pickle.dumps(s) for _, s in gpu.store.items()] == [
+        pickle.dumps(s) for _, s in cpu.store.items()
+    ]
+    assert np.array_equal(gpu.window.kg_arrivals, cpu.window.kg_arrivals)
+    m = gpu.metrics
+    ops = gpu.topology.operators
+    assert m.partition_kernel_batches == {
+        op: n for op, n in m.routed_batches.items() if ops[op].name not in HOST_HASHED[job]
+    }
+
+
+def test_split_move_unsplit_on_card_matches_cpu(cuda):
+    """chip_smoke.py phase 4s (a) at a small size: a flash crowd under
+    ``.split(4)``, the hottest agg and total key groups split, a replica
+    moved, the families folded back; states, blob bytes and the sink
+    totals equal to the CPU engine's, every hop through both kernels."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from repro_torch.engine import Engine, ExecutionConfig
+    from repro_torch.workloads import make_scenario, scenario_batches
+
+    batches = scenario_batches(make_scenario("flash_crowd", rate=4096.0, key_space=4096,
+                                             seed=1), 20)
+    engines = [Engine(cs.skew_job(50), 8, service_rate=1e9, collect_sinks=False,
+                      config=ExecutionConfig.split(4), device=d) for d in ("cuda", "cpu")]
+    gpu, cpu = engines
+    reset_launch_counts()
+    families, move = {}, None
+    for t in range(22):
+        if t == 19:
+            slot = families[next(iter(families))][0]
+            move = (slot, (gpu.router.node_of(slot) + 1) % 8)
+            for eng in engines:
+                eng.redirect(*move)
+        for eng in engines:
+            if t < 20:
+                eng.push_source("events", *batches[t])
+            eng.tick()
+        if t == 19:
+            blobs = [eng.serialize(move[0]) for eng in engines]
+            assert blobs[0] == blobs[1]
+            for eng, blob in zip(engines, blobs):
+                eng.install(move[0], move[1], blob)
+        if t == 17:
+            snaps = [eng.end_period() for eng in engines]
+            assert gpu.metrics.hot_keygroups == cpu.metrics.hot_keygroups
+            hot = [kg for kg, _ in gpu.metrics.hot_keygroups
+                   if gpu.topology.operators[int(gpu._kg_op[kg])].merge_state is not None]
+            for kg in hot[:2]:
+                slots = [eng.split_keygroup(kg) for eng in engines]
+                assert slots[0] == slots[1]
+                families[kg] = slots[0]
+            assert np.array_equal(snaps[0].kg_load, snaps[1].kg_load)
+    assert families
+    for kg in families:
+        for eng in engines:
+            eng.unsplit_keygroup(kg)
+    assert [pickle.dumps(s) for _, s in gpu.store.items()] == [
+        pickle.dumps(s) for _, s in cpu.store.items()
+    ]
+    fed = sum(len(b[0]) for b in batches)
+    assert sum(cs.layer_totals(gpu, "total").values()) == fed
+    assert cs.layer_totals(gpu, "total") == cs.layer_totals(cpu, "total")
+    counts = launch_counts()
+    assert counts["keygroup_partition"] > 0 and counts["radix_sort"] > 0
     assert gpu.metrics.partition_kernel_batches == gpu.metrics.routed_batches
 
 
@@ -993,7 +1105,7 @@ import chip_smoke as cs
 from repro_torch.engine import ExecutionConfig
 
 assert not torch.cuda.is_initialized()
-batches = cs.airline_batches(5, 4096, 0)
+batches = cs.source_batches("airline", 5, 4096, 0)
 eng = cs.job3_engine("cuda", batch=4096, config=ExecutionConfig.workers(4), kgs=50, nodes=8)
 base = eng.topology.kg_base(eng.topology._resolve("sumdelay"))
 kg = next(k for k in range(base, base + 50) if eng.node_worker[eng.router.node_of(k)] == 0)

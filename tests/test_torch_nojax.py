@@ -5,7 +5,9 @@ Pinned two ways: statically, over every import statement (top level or
 nested) in the port's sources and the chip smoke script; and at run time,
 by importing the package, running a small Real Job 3 (under ``.typed()``,
 under the compiled tier, ``.jit()``, and on a supervised two-worker cluster
-with checkpoints, a planted kill and a respawn), fused ticks and a K-tick scan of
+with checkpoints, a planted kill and a respawn), Real Jobs 1 (``.typed()``)
+and 4 (``.jit()``) with the three baselines on their snapshots, a skew
+scenario, the ``Engine`` guard against ``.workers(n)``, fused ticks and a K-tick scan of
 the fused superstep (``repro_torch.engine.superstep``) and one SMOKE decode
 tick of the serve loop for a dense, a hybrid (RG-LRU + windowed attention)
 and a MoE config in a subprocess where ``import jax`` and ``import repro``
@@ -86,6 +88,37 @@ for config in (ExecutionConfig.typed(), ExecutionConfig.jit()):
     assert eng.metrics.sink_tuples > 0 and snap.kg_load.sum() > 0
     engines.append(eng)
 typed, jit = engines
+import repro_torch.core.baselines, repro_torch.workloads
+from repro_torch.core.baselines import PotcSimulator, cola_allocate, flux_rebalance
+from repro_torch.data import real_job_1, real_job_4, weather_stream, wiki_edit_stream
+from repro_torch.workloads import make_scenario, scenario_batches
+for job, feeds, config in (
+    (real_job_1(keygroups_per_op=8, window_ticks=2.0),
+     {"wiki": wiki_edit_stream(StreamSpec(rate=60.0, seed=2))}, ExecutionConfig.typed()),
+    (real_job_4(keygroups_per_op=8),
+     {"airline": airline_stream(StreamSpec(rate=60.0, seed=2)),
+      "weather": weather_stream(StreamSpec(rate=15.0, seed=2))}, ExecutionConfig.jit()),
+):
+    eng = Engine(job, 3, service_rate=1e9, device="cpu", config=config)
+    for _ in range(5):
+        for op, feed in feeds.items():
+            eng.push_source(op, *next(feed))
+        eng.tick()
+    for _ in range(6):
+        eng.tick()
+    snap = eng.end_period()
+    assert eng.metrics.sink_tuples > 0
+    assert (eng.metrics.jit_calls > 0) == config.use_fn_jit
+    assert flux_rebalance(snap, max_migrations=3).num_migrations <= 3
+    assert len(cola_allocate(snap).alloc) == snap.num_keygroups
+    assert PotcSimulator(snap).step(snap.kg_load)[0].shape == (3,)
+assert sum(len(k) for k, _, _ in scenario_batches(make_scenario("flash_crowd"), 20)) > 0
+try:
+    Engine(real_job_3(keygroups_per_op=8), 3, device="cpu", config=ExecutionConfig.workers(2))
+except ValueError as e:
+    assert "make_engine" in str(e)
+else:
+    raise AssertionError("Engine accepted ExecutionConfig.workers(2)")
 import os
 from repro_torch.engine import CheckpointPolicy, SupervisionPolicy, make_engine
 from repro_torch.engine.faults import FaultPlan
