@@ -38,7 +38,7 @@ error or mismatch:
    few microseconds on the card can take longer than that on the host;
 3. the engine path at full size: Real Job 3 (airline → extract → sumdelay →
    routedelay) with 1000 key groups per operator on 16 nodes, one 2^20-tuple
-   airline batch per tick for 10 ticks, every routed hop through both
+   airline batch per tick for 6 ticks, every routed hop through both
    routing kernels; the first 3 ticks are held bit-identical (sink counts
    and every key group's state) to the port's own ``device="cpu"`` engine
    on the same batches, tuple counts are conserved, and tuples/s and the
@@ -171,10 +171,38 @@ error or mismatch:
    expert products of the extra prefill and of the extra decode step; the
    serve loop runs 3 workers x 8 slots at context 1,024 (0.4 GB of cache
    per slot); the weights of the earlier models are freed first;
+9. the training path (``--train`` runs it alone): (a) each LM kernel's
+   ``torch.autograd.Function`` alone at a train-path shape in f32 (flash at
+   Llama-3.2-3B's q (16,256,24,128), the scan at RecurrentGemma-2B's
+   (16,256,2560) with h0 requiring grad, moe_gemm at the trainer's MoE up
+   product with two experts given no rows, whose dw must be exactly 0)
+   against autograd of its plain version, every input's gradient within
+   1e-3 of relative norm, planted faults (the scan's backward without dh0,
+   a live expert's dw zeroed) rejected; then per parameter leaf the
+   gradient of ``Model.loss`` on one TokenPipeline batch (16 x 256) through
+   the Functions against the same through the plain versions, f32, no
+   remat, on two full-width cycles of Llama-3.2-3B and RecurrentGemma-2B
+   and on the trainer's ``reduced_config("moonshot_v1_16b_a3b", 512, 4,
+   32768)`` (there moe_gemm's Function alone, the expert choices replayed:
+   see ``model_grad_checks``), within 1e-3, with planted faults (today's
+   flash wrapper without its Function: no gradient to wq/wk/wv; a live
+   expert's dw zeroed) rejected; these launches are not counted.  Counted:
+   (b) Llama-3.2-3B at full width and depth (28 layers, 3.21 B params,
+   bf16, AdamW with ``cosine_schedule(3e-4, 20, 4)``, remat ``"full"``),
+   4 ``make_train_step`` steps on TokenPipeline batches of 16 x 256, then 2
+   more under torch.profiler: loss and grad norm finite, every leaf
+   changed, ms per step after the first, tokens/s, busy share, peak memory,
+   launches per step forward and backward apart; (c)
+   ``repro_torch.launch.train.main`` with examples/train_lm.py's arguments
+   cut to 30 steps, 3 periods, worker 1 failing at step 15: at most 4 shards
+   moved a period, the dead worker drained, then ``--restore`` resumes from
+   the last checkpoint's step, cursor and assignment for one more period;
+   (d) 2 steps of RecurrentGemma-2B at full width and depth and of the
+   trainer's MoE config (rglru_scan and moe_gemm forward and backward);
 
 then one JSON line listing the kernels with their launches on the paths
-that run them (phases 3, 3j, 3r, 3s, 3w, 4 and 4s for routing, 5-8 for the LM
-kernels), times,
+that run them (phases 3, 3j, 3r, 3s, 3w, 4 and 4s for routing, 5-9 for the LM
+kernels; phase 9's also apart, with its backward launches), times,
 bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
 and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
 without CUDA, and outside a checkout that holds ``src/repro_torch``.
@@ -209,9 +237,10 @@ SRC = ROOT / "src"
 BATCH = 1 << 20
 NODES = 16
 KGS = 1000
-# 10 ticks (20 until phases 3r and 4s joined the script: each phase runs
-# whole 2^20-tuple batches, and the script keeps to its time limit).
-TICKS = 10
+# 6 ticks (20 until phases 3r and 4s joined the script, 10 until phase 9
+# did: each phase runs whole 2^20-tuple batches, and the script keeps to its
+# time limit).
+TICKS = 6
 CHECK_TICKS = 3
 DRAIN_TICKS = 4
 CTL_KGS, CTL_NODES, CTL_RATE, CTL_TICKS, CTL_PERIODS = 30, 8, 220.0, 10, 6
@@ -1941,7 +1970,7 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
 # Real Jobs 1 and 4 at phase 3's deployment: 1000 key groups per operator,
 # 16 nodes, 2^20-tuple wiki and airline batches a tick, weather at a
 # quarter of that (benchmarks/real_jobs.py:296-300).
-RJ_TICKS = 6
+RJ_TICKS = 5  # (8 asked; 6 until phase 9 joined the script)
 # Job 1's TopK window, in ticks of stream time (every tuple of tick t has ts
 # t): topk closes windows at ts 1 to 5, global_topk (whose window opens at
 # ts 1) at 2 to 5, so four windows reach the sink within the 6 ticks.
@@ -2498,11 +2527,11 @@ def run_skew(dev, *, batch: int = BATCH, key_space: int = BATCH, kgs: int = KGS,
 # initialized CUDA cannot use it).  Phase 3w's own card engines (the
 # single-process references) run after that, in the same interpreter.
 W_WORKERS = 4
-W_TICKS = 6  # lockstep ticks of (a) (8 before phases 3r and 4s), then DRAIN_TICKS
+W_TICKS = 5  # lockstep ticks of (a) (8 before phases 3r and 4s, 6 before 9), then DRAIN_TICKS
 W_MIG_TICK = 3  # (b): redirect at this tick, serialize + install at the next
 W_FAULT_BATCH, W_FAULT_TICKS = 1 << 14, 3  # (c): the planted map, at a cut depth
 W_STREAM_WORKERS = (2, 4)  # (f)
-W_STREAM_BATCHES = 6  # (8 before phases 3r and 4s)
+W_STREAM_BATCHES = 4  # (8 before phases 3r and 4s, 6 before 9)
 # tests/conformance.py:131-133, the +workers configuration's statistics
 # tolerance (per-worker partial sums of the usage windows).
 WORKERS_RTOL, WORKERS_ATOL = 1e-12, 1e-18
@@ -3629,6 +3658,637 @@ def run_lm(dev, drive, spec: dict) -> tuple[dict, dict]:
     return lm, served
 
 
+# --------------------------------------------------------------------- phase 9
+# The training path (repro_torch.launch.train and the model's train step).
+TRAIN_BATCH, TRAIN_SEQ = 16, 256  # examples/train_lm.py's batch and length
+TRAIN_SHARDS = 16
+GRAD_CYCLES = 2  # (a): the first pattern cycles of each model, in float32
+# (a): each parameter leaf's gradient through the kernels' Functions within
+# this relative norm error of the gradient through the plain versions.
+GRAD_RTOL = 1e-3
+# (a)'s three models: two at full width, and the trainer's own MoE config.
+GRAD_ARCHS = ("llama3_2_3b", "recurrentgemma_2b", "moonshot_v1_16b_a3b")
+TRAIN_MOE = ("moonshot_v1_16b_a3b", 512, 4, 32768)  # reduced_config(arch, d, layers, vocab)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_PROFILED = "llama3_2_3b", 4, 2  # (b)
+RG_TRAIN_STEPS, MOE_TRAIN_STEPS = 2, 2  # (d)
+# (c): examples/train_lm.py's arguments, cut to 30 steps with a failure.
+ENTRY_ARGS = ["--arch", "llama3_2_3b", "--d-model", "640", "--layers", "10", "--vocab", "32768",
+              "--batch", "16", "--seq-len", "256", "--num-shards", "16", "--num-workers", "4",
+              "--hetero", "0.6", "--steps", "30", "--spl-steps", "10", "--ckpt-every", "10",
+              "--fail-worker", "1", "--fail-at", "15"]
+ENTRY_RESTORE_STEPS = 40  # the --restore run: one more period
+LM_KERNELS = ("flash_attention", "rglru_scan", "moe_gemm")
+
+
+def train_batch(cfg, dev, step: int = 0) -> dict:
+    """``TokenPipeline``'s batch ``step`` (16 x 256, the example's) on the card."""
+    import torch
+
+    from repro_torch.data import PipelineConfig, TokenPipeline
+
+    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, num_shards=TRAIN_SHARDS,
+                                        seed=SEED), start_step=step)
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """Leaf paths in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree) for n in leaf_names(t, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+@contextlib.contextmanager
+def routed(attention=None, scan=None, gemm=None):
+    """The model's kernel entry points swapped while active (None keeps one):
+    ``transformer.attention``, ``rglru.scan_kernel``, ``moe.moe_gemm``."""
+    import repro_torch.models.moe as moe_mod
+    import repro_torch.models.rglru as rglru_mod
+    import repro_torch.models.transformer as transformer
+
+    saved = transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm
+    transformer.attention = attention or saved[0]
+    rglru_mod.scan_kernel = scan or saved[1]
+    moe_mod.moe_gemm = gemm or saved[2]
+    try:
+        yield
+    finally:
+        transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm = saved
+
+
+def plain_versions() -> dict:
+    """Every LM kernel's plain version, in the model's call signatures."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    def attention(q, k, v, *, causal=True, window=None, **_):
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    return dict(attention=attention, scan=rglru_scan_ref, gemm=moe_gemm_ref)
+
+
+class TopkTape:
+    """``torch`` for the MoE module, whose ``topk`` either records the
+    experts it chooses (``replay is None``) or replays a recording: the
+    routed values are gathered from the logits at the recorded indices, so
+    the gates stay differentiable.  Top-k is discontinuous: at a near-tie
+    a rounding difference (the kernels' summation order) picks another
+    expert and moves the gradients, so a gradient comparison of MoE models
+    holds the routing fixed."""
+
+    def __init__(self):
+        self.tape, self.replay = [], None
+
+    def __getattr__(self, name):
+        import torch
+
+        return getattr(torch, name)
+
+    def topk(self, x, k, dim=-1, **kw):
+        import torch
+
+        if self.replay is None:
+            values, idx = torch.topk(x, k, dim=dim, **kw)
+            self.tape.append(idx)
+            return values, idx
+        idx = self.replay.pop(0)
+        return x.gather(dim, idx), idx
+
+
+@contextlib.contextmanager
+def fixed_routing(tape: TopkTape, record: bool):
+    """While active, the MoE layers' top-k records into ``tape`` or replays
+    it from the start."""
+    import repro_torch.models.moe as moe_mod
+
+    saved = moe_mod.torch
+    tape.replay = None if record else list(tape.tape)
+    moe_mod.torch = tape
+    try:
+        yield
+    finally:
+        moe_mod.torch = saved
+        if not record:
+            check(not tape.replay, "a replay left recorded top-k choices unused")
+
+
+def loss_and_grads(cfg, params, batch) -> tuple[float, list]:
+    """``Model.loss`` and the gradient of every parameter leaf (None where
+    the loss does not reach the leaf)."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss = Model(cfg).loss(tree_unflatten(params, live), batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    torch.cuda.synchronize()
+    return float(loss.detach()), list(grads)
+
+
+def grad_errors(got: list, ref: list) -> list[float]:
+    """Per leaf |got - ref|_2 / |ref|_2 (1.0 for a missing gradient)."""
+    out = []
+    for g, r in zip(got, ref):
+        if g is None or r is None:
+            out.append(0.0 if g is None and r is None else 1.0)
+            continue
+        num = float((g.double() - r.double()).norm())
+        den = float(r.double().norm())
+        out.append(num / den if den > 0 else num)
+    return out
+
+
+def grad_config(dev, arch: str):
+    """(a)'s float32 config and parameters: two cycles of ``arch`` at full
+    width (no remainder blocks), or the trainer's reduced MoE config."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models import init_params
+
+    if arch == TRAIN_MOE[0]:
+        cfg = reduced_config(*TRAIN_MOE)
+    else:
+        cfg = dataclasses.replace(get_config(arch), cycles=GRAD_CYCLES, remainder=())
+    # No remat: a recompute would route the MoE layers again (see TopkTape);
+    # the policies' equality is the CPU tests'.
+    cfg = dataclasses.replace(cfg, dtype="float32", remat="none")
+    return cfg, init_params(cfg, SEED, device=dev)
+
+
+def function_checks(dev) -> dict:
+    """Each Function alone on the card at a train-path shape, f32, against
+    autograd of its plain version: every input's gradient within GRAD_RTOL
+    (relative norm), h0 and x requiring grad too.  Planted faults: the
+    scan's backward without dh0, and moe's dw of a live expert zeroed."""
+    import importlib
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models.moe import capacity
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention.ops")
+    sc = importlib.import_module("repro_torch.kernels.rglru_scan.ops")
+    mg = importlib.import_module("repro_torch.kernels.moe_gemm.ops")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).requires_grad_()
+
+    def compare(what, fn, ref_fn, ins, fault_fn=None):
+        out = fn(*ins)
+        dy = torch.randn(out.shape, generator=gen, device=dev)
+        got = torch.autograd.grad(out, ins, dy, allow_unused=True)
+        ref = torch.autograd.grad(ref_fn(*ins), ins, dy)
+        errs = grad_errors(list(got), list(ref))
+        check(max(errs) <= GRAD_RTOL, f"{what}: input gradients {errs} off the plain version's "
+              f"(limit {GRAD_RTOL})")
+        res = {"max_rel_err": max(errs)}
+        if fault_fn is not None:
+            bad = grad_errors(
+                list(torch.autograd.grad(fault_fn(*ins), ins, dy, allow_unused=True)), list(ref))
+            check(max(bad) > GRAD_RTOL, f"{what}: the gradient check passes a planted fault "
+                  f"({bad})")
+            res["planted_fault_rel_err"] = max(bad)
+        return res
+
+    class DropH0(sc.RgluScanFn):
+        @staticmethod
+        def backward(ctx, dh):
+            da, db, _ = sc.RgluScanFn.backward(ctx, dh)
+            return da, db, None
+
+    res = {}
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    # flash at Llama-3.2-3B's train shape; the scan at RecurrentGemma-2B's
+    # (a in (0, 1), as the RG-LRU's decay); moe_gemm at the trainer's MoE
+    # config's up product, with 2 of its 8 experts given no rows.
+    q, k, v = rand(b, s, 24, 128), rand(b, s, 8, 128), rand(b, s, 8, 128)
+    res["flash_attention"] = compare(
+        "flash_attention Function", lambda *t: fa.flash_attention(*t, causal=True),
+        lambda *t: attention_ref(*t, causal=True), (q, k, v))
+    a = torch.rand((b, s, 2560), generator=gen, device=dev).requires_grad_()
+    bb, h0 = rand(b, s, 2560), rand(b, 2560)
+    res["rglru_scan"] = compare("rglru_scan Function", sc.rglru_scan, rglru_scan_ref,
+                                (a, bb, h0), fault_fn=DropH0.apply)
+    cfg = reduced_config(*TRAIN_MOE)
+    e, rows = cfg.moe.num_experts, b * capacity(cfg, s)
+    x = torch.randn((e, rows, cfg.d_model), generator=gen, device=dev)
+    x[[1, 5]] = 0
+    x.requires_grad_()
+    w = rand(e, cfg.d_model, cfg.d_ff, scale=cfg.d_model ** -0.5)
+
+    class ZeroLiveDw(mg.MoeGemmFn):
+        @staticmethod
+        def backward(ctx, dy):
+            dx, dw = mg.MoeGemmFn.backward(ctx, dy)
+            dw[0] = 0
+            return dx, dw
+
+    res["moe_gemm"] = compare("moe_gemm Function", mg.moe_gemm, moe_gemm_ref, (x, w),
+                              fault_fn=ZeroLiveDw.apply)
+    # A skipped expert's dw is exactly 0.
+    dw = torch.autograd.grad(mg.moe_gemm(x, w), w, torch.ones((e, rows, cfg.d_ff), device=dev))[0]
+    check(not bool(dw[[1, 5]].any()), "moe_gemm: an expert without rows got a nonzero dw")
+    log(f"[train] Functions alone vs plain versions (f32, input gradients' relative norm "
+        f"error): {res}")
+    return res
+
+
+#: What each Function's backward runs (PERF.md §6's "backward" column).
+BACKWARD_RUNS = {
+    "flash_attention": "the plain version (attention_ref) recomputed and differentiated",
+    "rglru_scan": "one more rglru_scan launch on the reversed, shifted inputs",
+    "moe_gemm": "one more moe_gemm launch for dx (w transposed), torch.bmm for dw",
+}
+
+
+def backward_timings(dev, reps: int = 5) -> dict:
+    """Each Function's backward alone at its training shape (CUDA events,
+    ``retain_graph`` so one forward serves every rep): flash in bf16 at
+    Llama-3.2-3B's (16,256,24,128) / (16,256,8,128), beside SDPA's
+    backward; the scan in f32 at RecurrentGemma-2B's (16,256,2560), beside
+    its plain version's autograd; moe_gemm in bf16 at the trainer's MoE up
+    product, beside the plain version's autograd and ``torch.bmm``'s."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, moe_gemm, rglru_scan
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.launch.train import reduced_config
+    from repro_torch.models.moe import capacity
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf16 = torch.bfloat16
+
+    def leaf(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype).requires_grad_()
+
+    def bwd_ms(fn, ins, n=reps):
+        out = fn(*ins)
+        dy = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        return cuda_ms(lambda i: torch.autograd.grad(out, ins, dy, retain_graph=True), n)
+
+    res = {}
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v = leaf(b, s, 24, 128, dtype=bf16), leaf(b, s, 8, 128, dtype=bf16), leaf(
+        b, s, 8, 128, dtype=bf16)
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    res["flash_attention"] = dict(
+        shape=f"q ({b},{s},24,128) k/v ({b},{s},8,128) bf16 causal",
+        ms=bwd_ms(lambda *t: flash_attention(*t, causal=True), (q, k, v)),
+        plain_ms=bwd_ms(lambda *t: attention_ref(*t, causal=True), (q, k, v)),
+        library_ms=bwd_ms(lambda *t: sdpa(*t, is_causal=True), (qt, kt, vt)))
+    a = torch.rand((b, s, 2560), generator=gen, device=dev).requires_grad_()
+    bb, h0 = leaf(b, s, 2560), torch.zeros((b, 2560), device=dev)
+    res["rglru_scan"] = dict(
+        shape=f"a, b ({b},{s},2560) f32", ms=bwd_ms(lambda *t: rglru_scan(*t, h0), (a, bb)),
+        plain_ms=bwd_ms(lambda *t: rglru_scan_ref(*t, h0), (a, bb), 2), library_ms=None)
+    cfg = reduced_config(*TRAIN_MOE)
+    e, rows = cfg.moe.num_experts, b * capacity(cfg, s)
+    x, w = leaf(e, rows, cfg.d_model, dtype=bf16), leaf(e, cfg.d_model, cfg.d_ff, dtype=bf16,
+                                                       scale=cfg.d_model ** -0.5)
+    res["moe_gemm"] = dict(
+        shape=f"x ({e},{rows},{cfg.d_model}) w ({e},{cfg.d_model},{cfg.d_ff}) bf16",
+        ms=bwd_ms(moe_gemm, (x, w)), plain_ms=bwd_ms(moe_gemm_ref, (x, w)),
+        library_ms=bwd_ms(torch.bmm, (x, w)))
+    for name, r in res.items():
+        r["runs"] = BACKWARD_RUNS[name]
+    log(f"[train] backward alone at the train shapes, ms (CUDA events): {res}")
+    return res
+
+
+#: The MoE model's conditioning probe: a relative perturbation of the plain
+#: attention's output at about f32 rounding, and how far past its effect
+#: on the gradients the kernels' rounding may go.
+NUDGE_RTOL, NUDGE_FACTOR = 1e-6, 10.0
+
+
+def nudged(attention, dev):
+    """``attention`` with its output times (1 + NUDGE_RTOL * N(0, 1)), drawn
+    from a fixed seed."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def run(q, k, v, **kw):
+        out = attention(q, k, v, **kw)
+        return out * (1 + NUDGE_RTOL * torch.randn(out.shape, generator=gen, device=out.device))
+
+    return run
+
+
+def model_grad_checks(dev) -> dict:
+    """(a): per parameter leaf, the gradient of ``Model.loss`` on one
+    TokenPipeline batch through the kernels' Functions against the same
+    through every kernel's plain version (the MoE model: moe_gemm's, and
+    the all-plain error against the model's own conditioning; see below),
+    f32, within GRAD_RTOL; a planted
+    fault per kernel the check must reject (today's flash wrapper without
+    its Function: no gradient to wq/wk/wv; moe's dw of a live expert
+    zeroed).  The scan's dh0 fault is rejected by ``function_checks``: the
+    model's scans start from a constant 0.  The plain and faulty runs
+    replay the Function run's expert choices (``TopkTape``)."""
+    import importlib
+
+    import torch
+
+    from repro_torch.kernels import backward_launch_counts, launch_counts, reset_launch_counts
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention.ops")
+    mg = importlib.import_module("repro_torch.kernels.moe_gemm.ops")
+
+    class ZeroLiveDw(mg.MoeGemmFn):
+        @staticmethod
+        def backward(ctx, dy):
+            dx, dw = mg.MoeGemmFn.backward(ctx, dy)
+            dw[int(dw.flatten(1).norm(dim=1).argmax())] = 0  # a live expert's
+            return dx, dw
+
+    def no_function(q, k, v, *, causal=True, window=None, **_):
+        return fa._run(q, k, v, causal, window)
+
+    faults = {"llama3_2_3b": ("flash wrapper without its Function", dict(attention=no_function)),
+              "moonshot_v1_16b_a3b": ("moe dw of a live expert zeroed",
+                                      dict(gemm=lambda x, w: ZeroLiveDw.apply(x, w)))}
+    plain = plain_versions()
+    res = {}
+    for arch in GRAD_ARCHS:
+        cfg, params = grad_config(dev, arch)
+        batch = train_batch(cfg, dev)
+        names = leaf_names(params)
+        tape = TopkTape()
+        reset_launch_counts()
+        with fixed_routing(tape, record=True):
+            loss, got = loss_and_grads(cfg, params, batch)
+        counts, back = launch_counts(), backward_launch_counts()
+        swap = plain
+        if cfg.moe is not None:
+            # At the reference's init this model is ill-conditioned in its
+            # attention (4 heads, so wq's std is 1/2 and the scores ~100):
+            # its gradients move by percents under a perturbation of
+            # attention's output at rounding size, with the routing held
+            # fixed.  So GRAD_RTOL holds moe_gemm's Function alone
+            # (attention through the flash Function in both runs), and the
+            # all-plain error is held to NUDGE_FACTOR times what a
+            # NUDGE_RTOL relative perturbation of the plain attention's
+            # output does to the all-plain gradients, measured here.
+            with routed(**plain), fixed_routing(tape, record=False):
+                all_plain = loss_and_grads(cfg, params, batch)[1]
+            with routed(**dict(plain, attention=nudged(plain["attention"], dev))), \
+                    fixed_routing(tape, record=False):
+                sensitivity = max(grad_errors(loss_and_grads(cfg, params, batch)[1],
+                                              all_plain))
+            out_all = max(grad_errors(got, all_plain))
+            check(out_all <= NUDGE_FACTOR * sensitivity, f"{cfg.name}: gradients through every "
+                  f"kernel {out_all:.3e} off the plain versions', over {NUDGE_FACTOR} x the "
+                  f"model's own {sensitivity:.3e} under a {NUDGE_RTOL} nudge of attention")
+            del all_plain
+            swap = dict(gemm=plain["gemm"])
+        with routed(**swap), fixed_routing(tape, record=False):
+            ref_loss, ref = loss_and_grads(cfg, params, batch)
+        check(launch_counts()["moe_gemm"] == counts["moe_gemm"] or cfg.moe is None,
+              f"{arch}: the plain run launched moe_gemm")
+        errs = grad_errors(got, ref)
+        worst = int(np.argmax(errs))
+        check(errs[worst] <= GRAD_RTOL, f"{cfg.name}: gradient of {names[worst]} is "
+              f"{errs[worst]:.3e} off the plain versions' (limit {GRAD_RTOL})")
+        out = dict(layers=cfg.num_layers, leaves=len(names), loss=loss, plain_loss=ref_loss,
+                   plain=sorted(k for k in swap), worst_leaf=names[worst],
+                   worst_rel_err=errs[worst], launches={k: counts[k] for k in LM_KERNELS},
+                   backward_launches={k: back[k] for k in LM_KERNELS})
+        if cfg.moe is not None:
+            out.update(all_plain_worst_rel_err=out_all, nudge_sensitivity=sensitivity)
+        if arch in faults:
+            what, swap = faults[arch]
+            with routed(**swap), fixed_routing(tape, record=False):
+                _, bad = loss_and_grads(cfg, params, batch)
+            bad_errs = grad_errors(bad, ref)
+            b = int(np.argmax(bad_errs))
+            check(bad_errs[b] > GRAD_RTOL, f"{cfg.name}: the gradient check passes a planted "
+                  f"fault ({what}): worst {bad_errs[b]:.3e}")
+            out["planted_fault"] = dict(what=what, worst_leaf=names[b], rel_err=bad_errs[b])
+        log(f"[train] (a) {cfg.name}, {cfg.num_layers} layers, f32, {len(names)} leaves, plain "
+            f"{out['plain']}: loss {loss:.6f} (plain {ref_loss:.6f}); worst leaf {names[worst]} at "
+            f"relative norm error {errs[worst]:.3e}"
+            + (f" (every kernel plain: {out_all:.3e}, against {sensitivity:.3e} from a "
+               f"{NUDGE_RTOL} relative nudge of the plain attention's output)"
+               if cfg.moe is not None else "")
+            + f"; launches {out['launches']} (backward {out['backward_launches']})"
+            + (f"; planted fault ({out['planted_fault']['what']}) rejected: "
+               f"{out['planted_fault']['worst_leaf']} at {out['planted_fault']['rel_err']:.3e}"
+               if "planted_fault" in out else ""))
+        res[arch] = out
+        del params, got, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_steps(dev, cfg, steps: int, profiled: int = 0, every_leaf: bool = False) -> dict:
+    """``steps`` make_train_step steps of ``cfg`` (seeded random weights on
+    the card, AdamW with cosine_schedule(3e-4, 20, steps), TokenPipeline
+    batches of 16 x 256), then ``profiled`` more under torch.profiler.  Loss
+    and grad norm finite, and with ``every_leaf`` every leaf changed (else
+    the unchanged leaves are listed: in 2 warm-up steps at lr ≤ 4.5e-5 a
+    bf16 leaf whose gradients are near AdamW's eps moves less than its
+    rounding); ms per step after the first, tokens/s, busy share, peak
+    memory and the LM kernels' launches per step, forward and backward
+    apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import backward_launch_counts, launch_counts
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    def checksums(p) -> list[int]:
+        return [int(t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+                    .sum(dtype=torch.int64)) for t in tree_leaves(p)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, SEED, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    before = checksums(params)
+    events = []
+
+    class TimedAdamW(AdamW):
+        """CUDA events around each step's optimizer (``AdamW.apply``)."""
+
+        def apply(self, grads, state, params):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            out = super().apply(grads, state, params)
+            stop.record()
+            events.append((start, stop))
+            return out
+
+    opt = (TimedAdamW if dev.type == "cuda" else AdamW)(
+        learning_rate=cosine_schedule(3e-4, 20, steps))
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    batches = [train_batch(cfg, dev, i) for i in range(steps + profiled)]
+    start_counts, start_back = launch_counts(), backward_launch_counts()
+    secs, losses, norms = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batches[i])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    opt_ms = [a.elapsed_time(b) for a, b in events[1:steps]]
+    counts = {k: (launch_counts()[k] - start_counts[k]) / steps for k in LM_KERNELS}
+    back = {k: (backward_launch_counts()[k] - start_back[k]) / steps for k in LM_KERNELS}
+    check(all(math.isfinite(x) for x in losses + norms), f"{cfg.name}: non-finite loss or grad "
+          f"norm {losses} {norms}")
+    # Every leaf changes, but where a bf16 leaf's smallest |value| is so
+    # large that no update of at most the peak learning rate survives its
+    # rounding (RecurrentGemma's lam, ones, in 2 warm-up steps; the
+    # reference's (p + u).astype(p.dtype) rounds alike).
+    after = checksums(params)
+    same = [(n, t) for n, t, b, a in zip(leaf_names(params), tree_leaves(params), before, after)
+            if a == b]
+    stuck = [n for n, t in same
+             if not (t.dtype == torch.bfloat16 and float(t.abs().min()) * 2.0**-9 > 3e-4)]
+    check(not (every_leaf and stuck), f"{cfg.name}: leaves unchanged after {steps} steps: "
+          f"{stuck}")
+    ms = 1e3 * float(np.median(secs[1:]))
+    res = dict(layers=cfg.num_layers, params=n_params, steps=steps, first_step_s=secs[0],
+               unchanged_by_rounding=[n for n, _ in same],
+               ms_per_step=ms, step_ms=[1e3 * s for s in secs],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+               optimizer_ms=float(np.median(opt_ms)) if opt_ms else None, losses=losses,
+               grad_norms=norms, launches_per_step={k: counts[k] - back[k] for k in LM_KERNELS},
+               backward_launches_per_step=back)
+    if profiled:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(steps, steps + profiled):
+                params, opt_state, m = step_fn(params, opt_state, batches[i])
+            torch.cuda.synchronize()
+        rows = device_kernels(prof)
+        busy = sum(r[0] for r in rows) / 1e6
+        res.update(profiled_steps=profiled, busy_s=busy,
+                   busy_share=busy / (profiled * ms / 1e3) if rows else None,
+                   top=[(k, round(us / 1e3, 3), n) for us, k, n in rows[:8]])
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = (f"; device busy {100 * res['busy_share']:.1f} % of {profiled} profiled steps"
+            if res.get("busy_share") is not None else
+            ("; torch.profiler recorded no device time: busy share not measured"
+             if profiled else ""))
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params, "
+        f"{steps} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, remat {cfg.remat}: first "
+        f"{secs[0]:.2f} s, then {ms:.1f} ms/step = {res['tokens_per_s']:.0f} tokens/s{busy}; "
+        f"AdamW.apply {res['optimizer_ms']} ms of a step (CUDA events); "
+        f"peak memory {res['peak_mem_gb']:.2f} GB; losses {[round(x, 4) for x in losses]}; "
+        f"unchanged leaves {res['unchanged_by_rounding']}; "
+        f"launches per step forward {res['launches_per_step']}, backward {back}")
+    return res
+
+
+def run_entry_point(dev) -> dict:
+    """(c): ``repro_torch.launch.train.main`` with examples/train_lm.py's
+    arguments, cut to 30 steps with worker 1 failing at step 15, then
+    ``--restore`` for one more period: at most 4 shards move a period, the
+    dead worker holds none after the failure, and the restored run starts
+    from the last checkpoint's step, cursor and assignment."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.train import main as train_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ENTRY_ARGS + ["--ckpt-dir", tmp, "--device", str(dev)]
+        t0 = time.perf_counter()
+        run = train_main(args)
+        wall = time.perf_counter() - t0
+        periods = run["periods"]
+        check(len(periods) == 3, f"the trainer ran {len(periods)} periods, not 3")
+        for p in periods:
+            check(p["moved"] <= 4, f"period at step {p['step']} moved {p['moved']} shards")
+            if p["step"] > 15:
+                check(1 not in p["assignment"], f"dead worker 1 holds shards after the "
+                      f"failure: {p['assignment']}")
+        check(all(math.isfinite(x) for x in run["losses"]), "non-finite trainer loss")
+        ckpt = CheckpointManager(tmp, keep=2)
+        last = ckpt.latest_step()
+        check(last == 29, f"last checkpoint at step {last}, not 29")
+        _, meta = ckpt.restore(last)
+        t1 = time.perf_counter()
+        again = train_main(args[:args.index("--steps")] + args[args.index("--steps") + 2:]
+                           + ["--steps", str(ENTRY_RESTORE_STEPS), "--restore"])
+        restore_wall = time.perf_counter() - t1
+    check(again["start"] == meta["step"] + 1 == 30, f"restored at step {again['start']}")
+    check(again["cursor_step"] == meta["cursor"]["step"] == 30,
+          f"restored cursor at step {again['cursor_step']}")
+    check(again["restored_assignment"] == meta["assignment"] == run["assignment"],
+          "the restored assignment differs from the checkpoint's")
+    check(len(again["losses"]) == ENTRY_RESTORE_STEPS - 30, "the restored run's step count")
+    res = dict(wall_s=wall, restore_wall_s=restore_wall,
+               periods=[{k: v for k, v in p.items() if k != "alive"} for p in periods],
+               restored_from=meta["step"], restored_periods=again["periods"])
+    log(f"[train] (c) entry point: 30 steps in {wall:.1f} s, moved "
+        f"{[p['moved'] for p in periods]}, assignments {[p['assignment'] for p in periods]}; "
+        f"--restore from step {meta['step']} ran to {ENTRY_RESTORE_STEPS} in {restore_wall:.1f} s")
+    return res
+
+
+def run_training(dev) -> dict:
+    """(b)-(d): the training path with its launches counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import reduced_config
+
+    res = {}
+    res["llama_full"] = train_steps(dev, dataclasses.replace(get_config(TRAIN_ARCH),
+                                                             remat="full"),
+                                    TRAIN_STEPS, TRAIN_PROFILED, every_leaf=True)
+    res["entry_point"] = run_entry_point(dev)
+    res["recurrentgemma_full_width"] = train_steps(dev, get_config(RG_ARCH), RG_TRAIN_STEPS)
+    res["moe_reduced"] = train_steps(dev, reduced_config(*TRAIN_MOE), MOE_TRAIN_STEPS)
+    return res
+
+
+def run_train_phase(dev, drive) -> dict:
+    """Phase 9: (a) the gradient checks (not counted as path launches),
+    then (b)-(d) under ``drive``."""
+    t0 = time.perf_counter()
+    res = {"functions": function_checks(dev), "grads": model_grad_checks(dev),
+           "backward": backward_timings(dev)}
+    t1 = time.perf_counter()
+    from repro_torch.kernels import backward_launch_counts
+
+    train, counts = drive(LM_KERNELS, run_training, dev)
+    res.update(train)
+    res["launches"] = {k: counts[k] for k in LM_KERNELS}
+    res["backward_launches"] = backward_launch_counts()
+    res["grad_check_s"], res["train_s"] = t1 - t0, time.perf_counter() - t1
+    log(f"[train] phase 9: gradient checks {res['grad_check_s']:.1f} s, training "
+        f"{res['train_s']:.1f} s; launches {res['launches']}")
+    return res
+
+
 def host_us(reps: int = 200, rounds: int = 5) -> dict:
     """Host microseconds per call of the decode path's kernel wrappers, as
     imported (``--host-us SRC`` imports them from SRC, so that two
@@ -3741,6 +4401,20 @@ def main() -> int:
             launches[name] += counts[name]
         return result, counts
 
+    def stamp(what: str) -> None:
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
+    if sys.argv[1:2] == ["--train"]:
+        # Phase 9 alone.
+        try:
+            t0 = time.perf_counter()
+            log(f"[build] {_build.build()} in {time.perf_counter() - t0:.2f} s wall")
+            train = run_train_phase(dev, drive)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"card": card, "train": train}, default=str))
+        return 0
     try:
         t0 = time.perf_counter()
         built = _build.build()
@@ -3760,6 +4434,7 @@ def main() -> int:
         kernels.update(scan_and_expert_kernel_checks(dev))
         gc.collect()
         torch.cuda.empty_cache()
+        stamp("phases 1-2")
 
         routing = ("keygroup_partition", "radix_sort")
 
@@ -3782,14 +4457,17 @@ def main() -> int:
             return {"typed": typed, "jit": jit}, controller
 
         (engine, controller), _ = drive(routing, engine_paths)
+        stamp("phases 3, 3j and 4")
         gc.collect()
         real_jobs, counts = drive(routing, run_real_jobs, dev)
         real_jobs["launches"] = {name: counts[name] for name in routing}
         log(f"[realjobs] phase 3r routing launches {real_jobs['launches']}")
+        stamp("phase 3r")
         gc.collect()
         skew, counts = drive(routing, run_skew, dev)
         skew["launches"] = {name: counts[name] for name in routing}
         log(f"[skew] phase 4s routing launches {skew['launches']}")
+        stamp("phase 4s")
         gc.collect()
         torch.cuda.empty_cache()
         superstep, counts = drive(routing, run_superstep, dev, card)
@@ -3798,6 +4476,7 @@ def main() -> int:
             f"and kernels recorded into graphs) {superstep['launches']}; replays of the "
             f"device-routed scan {superstep['device']['replays']} x "
             f"{superstep['device']['graph_launches']}")
+        stamp("phase 3s")
         gc.collect()
         torch.cuda.empty_cache()
         # Phase 3w in a fresh interpreter (this one holds a CUDA context,
@@ -3807,17 +4486,25 @@ def main() -> int:
         for name in routing:
             check(workers["launches"][name] > 0, f"kernel {name} was not launched by a worker")
             launches[name] += workers["launches"][name]
+        stamp("phase 3w")
 
         lm, served = {}, {}
         for spec in LM_RUNS:
             lm[spec["arch"]], served[spec["arch"]] = run_lm(dev, drive, spec)
+            stamp(f"LM phases of {spec['arch']}")
+        train = run_train_phase(dev, drive)
+        stamp("phase 9")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[summary] engine {engine}; controller {controller}; real jobs {real_jobs}; "
         f"skew {skew}; superstep {superstep}; workers {workers}; "
-        f"lm {lm}; serve {served}; "
+        f"lm {lm}; serve {served}; train {train}; "
         f"{time.perf_counter() - t_start:.1f} s total")
+    for name in LM_KERNELS:
+        kernels[name]["train_launches"] = dict(total=train["launches"][name],
+                                               backward=train["backward_launches"][name])
+        kernels[name]["backward"] = train["backward"][name]
     rows = [dict(name=name, launches=launches[name], **kernels[name]) for name in kernels]
     print(json.dumps({"kernels": rows}))
     print(f"{card}")

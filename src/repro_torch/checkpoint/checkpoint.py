@@ -21,8 +21,13 @@ bfloat16 and float8 leaves stored as unsigned-integer views beside their
 dtype string).  The one file whose content differs is ``treedef.pkl``: the
 reference pickles a jax ``PyTreeDef`` there, which cannot be read without
 jaxlib, and this module pickles its own structure description — nested
-tuples over dict, list, tuple and None with numpy or torch leaves.  A
-payload therefore crosses between the packages through ``arrays.npz`` (see
+tuples over dict, list, tuple, None and dataclasses with numpy or torch
+leaves.  A dataclass (the optimizer's ``AdamWState``, which the reference
+registers with ``jax.tree_util.register_dataclass``) is described by its
+class's import path and its fields in declaration order, the order in
+which jax flattens it, so a ``(params, AdamWState)`` tree writes the
+reference's leaves in the reference's order.  A payload crosses between
+the packages through ``arrays.npz`` (see
 :func:`repro_torch.engine.checkpointing.payload_from_tree`), never through
 ``treedef.pkl``.
 
@@ -33,6 +38,8 @@ included, without ``ml_dtypes``); a numpy leaf loads as a numpy array.
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
 import os
 import pickle
@@ -106,6 +113,11 @@ def _flatten(tree: Any, leaves: list) -> Any:
     if isinstance(tree, (list, tuple)):
         kind = "list" if isinstance(tree, list) else "tuple"
         return (kind, tuple(_flatten(x, leaves) for x in tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        cls = type(tree)
+        fields = tuple((f.name, _flatten(getattr(tree, f.name), leaves))
+                       for f in dataclasses.fields(tree))
+        return ("dataclass", f"{cls.__module__}:{cls.__qualname__}", fields)
     leaves.append(tree)
     return ("leaf",)
 
@@ -118,6 +130,12 @@ def _unflatten(struct: Any, leaves) -> Any:
         return next(leaves)
     if kind == "dict":
         return {k: _unflatten(s, leaves) for k, s in struct[1]}
+    if kind == "dataclass":
+        module, qualname = struct[1].split(":")
+        cls = importlib.import_module(module)
+        for part in qualname.split("."):
+            cls = getattr(cls, part)
+        return cls(**{name: _unflatten(s, leaves) for name, s in struct[2]})
     items = [_unflatten(s, leaves) for s in struct[1]]
     return items if kind == "list" else tuple(items)
 

@@ -7,7 +7,9 @@ Each kernel package holds
   plain C launcher, built at first use by :mod:`._build`;
 * ``ops.py`` — the wrapper: checks its inputs, launches the kernel for a
   CUDA tensor (counting launches), or runs the plain version for a CPU
-  tensor;
+  tensor; the LM kernels' wrappers launch inside a
+  ``torch.autograd.Function`` where a CUDA input requires grad, and count
+  the launches their backward makes apart too (``backward_launches``);
 * ``ref.py`` — the plain PyTorch version.
 
 ``keygroup_partition`` (hash partition + arrival histogram), ``radix_sort``
@@ -40,12 +42,21 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "backward_launches"):
+            fn.backward_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "bucket_argsort", "decode_attention", "flash_attention",
-           "keygroup_partition", "launch_counts", "moe_gemm", "reset_launch_counts",
+def backward_launch_counts() -> dict[str, int]:
+    """Launches made by the autograd Functions' backward passes (included
+    in :func:`launch_counts` too)."""
+    return {name: fn.backward_launches for name, fn in KERNELS.items()
+            if hasattr(fn, "backward_launches")}
+
+
+__all__ = ["KERNELS", "backward_launch_counts", "bucket_argsort", "decode_attention",
+           "flash_attention", "keygroup_partition", "launch_counts", "moe_gemm", "reset_launch_counts",
            "rglru_scan"]

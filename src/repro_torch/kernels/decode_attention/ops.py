@@ -139,6 +139,8 @@ def decode_attention(
 ) -> torch.Tensor:
     check_qkv(q, k_cache, v_cache)
     b, one, h, hd = q.shape
+    if hd % 8:
+        raise ValueError(f"head_dim {hd} must be a multiple of 8 (16-byte rows)")
     if one != 1:
         raise ValueError(f"decode takes one query token per row, got {one}")
     if not isinstance(kv_len, torch.Tensor) or kv_len.shape != (b,):

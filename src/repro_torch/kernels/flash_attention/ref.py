@@ -1,5 +1,6 @@
 """Plain PyTorch version of flash attention: naive softmax attention with
-GQA in f32 math, the counterpart of the reference's ``attention_ref``.
+GQA in f32 math (float64 inputs keep float64), the counterpart of the
+reference's ``attention_ref``.
 
 The CPU path of the port's wrapper, and what the CUDA kernel is held
 against on the card.
@@ -26,8 +27,9 @@ def attention_ref(
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    qg = q.reshape(b, s, kvh, g, hd).float()
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / math.sqrt(hd)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, s, kvh, g, hd).to(acc)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.to(acc)) / math.sqrt(hd)
     spos = torch.arange(s, device=q.device)[:, None]
     tpos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
@@ -37,5 +39,5 @@ def attention_ref(
         mask &= tpos > spos - window
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.to(acc))
     return out.reshape(b, s, h, hd).to(q.dtype)

@@ -12,6 +12,14 @@ are all zero (those of the experts no token chose): it reads none of their
 weights and writes their rows as +0.  For finite weights that equals the
 dense product exactly; an inf or NaN in a skipped expert's weights would
 give NaN in the dense product and 0 here.
+
+Where a CUDA input requires grad (and grad mode is on), the launch runs
+inside :class:`MoeGemmFn`.  Its backward launches the kernel once more for
+``dx = dy @ wᵀ`` (wᵀ made contiguous per expert; the skip applies to the
+experts whose rows of dy are zero, exactly) and takes ``dw = xᵀ @ dy`` as
+``torch.bmm``, as the reference's XLA does: an expert no token reached has
+zero rows of x, so its ``dw`` is exactly 0.  The backward's launch counts
+in ``moe_gemm.launches`` and, apart, in ``moe_gemm.backward_launches``.
 """
 
 from __future__ import annotations
@@ -87,13 +95,10 @@ def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, path: str, *,
         )
 
 
-def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    _check(x, w)
+def _run(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors: allocate the output, launch, count.  No
+    autograd: the output has no ``grad_fn``."""
     dev = x.device
-    if dev.type == "cpu":
-        return moe_gemm_ref(x, w)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
     e, c, d = x.shape
@@ -107,5 +112,39 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-#: Kernel launches since the last reset.
+class MoeGemmFn(torch.autograd.Function):
+    """The kernel's forward; dx by the kernel, dw by ``torch.bmm``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _run(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _run(dy, w.transpose(1, 2).contiguous())
+            moe_gemm.backward_launches += 1
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(x.transpose(1, 2), dy)
+        return dx, dw
+
+
+def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check(x, w)
+    dev = x.device
+    if dev.type == "cpu":
+        return moe_gemm_ref(x, w)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return MoeGemmFn.apply(x, w)
+    return _run(x, w)
+
+
+#: Kernel launches since the last reset, and those made by a backward.
 moe_gemm.launches = 0
+moe_gemm.backward_launches = 0

@@ -6,6 +6,15 @@ f32, and h0 (B,W) in any float dtype (the carry is f32), and returns
 launches ``csrc/rglru_scan.cu`` on the current stream, through the body
 that :func:`kernel_path` picks; a CPU tensor takes the plain version in
 :mod:`.ref`.  Nothing falls back: a launch that fails raises.
+
+Where a CUDA input requires grad (and grad mode is on), the launch runs
+inside :class:`RgluScanFn`.  Its backward is one more launch of the same
+kernel: the adjoint of ``h_t = a_t h_{t-1} + b_t`` is the linear recurrence
+``g_t = dL/dh_t + a_{t+1} g_{t+1}`` run from the end, i.e. the scan of
+``a`` shifted one step and reversed over ``dL/dh`` reversed, from 0; then
+``da_t = g_t h_{t-1}``, ``db_t = g_t`` and ``dh0 = a_1 g_1``.  The
+backward's launches count in ``rglru_scan.launches`` and, apart, in
+``rglru_scan.backward_launches``.
 """
 
 from __future__ import annotations
@@ -90,13 +99,9 @@ def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> None:
                          f"{h0.dtype} {tuple(h0.shape)}")
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-    _check(a, b, h0)
-    dev = a.device
-    if dev.type == "cpu":
-        return rglru_scan_ref(a, b, h0)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+def _run(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors: allocate the output, launch, count.  No
+    autograd: the output has no ``grad_fn``."""
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
     out = torch.empty_like(a)
@@ -109,5 +114,42 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
     return out
 
 
-#: Kernel launches since the last reset.
+class RgluScanFn(torch.autograd.Function):
+    """The kernel's forward; a backward that is the same kernel, reversed."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _run(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h0, h = ctx.saved_tensors
+        a_next = torch.zeros_like(a)
+        a_next[:, :-1] = a[:, 1:]
+        g = _run(a_next.flip(1).contiguous(), dh.to(a.dtype).flip(1).contiguous(),
+                 torch.zeros_like(h0, dtype=torch.float32)).flip(1)
+        rglru_scan.backward_launches += 1
+        h_prev = torch.cat([h0.to(h.dtype)[:, None], h[:, :-1]], dim=1)
+        da = (g.float() * h_prev.float()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = g if ctx.needs_input_grad[1] else None
+        dh0 = (a[:, 0].float() * g[:, 0].float()).to(h0.dtype) if ctx.needs_input_grad[2] else None
+        return da, db, dh0
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    _check(a, b, h0)
+    dev = a.device
+    if dev.type == "cpu":
+        return rglru_scan_ref(a, b, h0)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or h0.requires_grad):
+        return RgluScanFn.apply(a, b, h0)
+    return _run(a, b, h0)
+
+
+#: Kernel launches since the last reset, and those made by a backward.
 rglru_scan.launches = 0
+rglru_scan.backward_launches = 0

@@ -1,1 +1,2 @@
-"""Launchers of the port: the serve loop (:mod:`.serve`)."""
+"""Launchers of the port: the serve loop (:mod:`.serve`) and the trainer
+(:mod:`.train`)."""

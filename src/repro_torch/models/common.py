@@ -42,6 +42,22 @@ def tree_leaves(tree: Any, is_leaf: Callable = None) -> list:
     return [tree]
 
 
+def tree_unflatten(tree: Any, leaves: list) -> Any:
+    """``tree``'s structure with its leaves replaced by ``leaves``, given in
+    :func:`tree_leaves` order (dicts keep their own key order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            done = {k: build(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(tree)
+
+
 # ---------------------------------------------------------------------------
 # Parameter specs and initialization
 # ---------------------------------------------------------------------------

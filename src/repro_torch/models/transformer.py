@@ -1,15 +1,20 @@
-"""Model assembly from a config's block pattern: the serving path.
+"""Model assembly from a config's block pattern: serving and training.
 
 Parameters and caches keep the reference's tree layout: dicts whose
 ``blocks``/``scan`` entries carry a leading ``cycles`` dim, so the tests
 compare like with like.  Inside, a plain Python loop over layers takes the
-place of ``lax.scan``; remat does not apply to inference.
+place of ``lax.scan``; the stacked parameters are unbound once per forward
+(so a gradient is stacked once, not scattered into a full-size buffer per
+layer).  Where the parameters require grad, each pattern cycle of the
+trunk is rematerialized per ``cfg.remat`` (:func:`_maybe_remat`), as the
+reference wraps its scanned cycle in ``jax.checkpoint``; remat does not
+apply to inference.
 
 The ATTN (every dense config: GLM-4, Llama-3.2, Mistral-NeMo, Gemma, the
 Qwen2-VL backbone with M-RoPE), ATTN_MOE (DBRX, Moonlight), RGLRU and
-LOCAL_ATTN (RecurrentGemma) block kinds run.  The xLSTM kinds,
-encoder-decoder models and training raise ``NotImplementedError`` naming
-their ROADMAP item.
+LOCAL_ATTN (RecurrentGemma) block kinds run, for inference and training.
+The xLSTM kinds and encoder-decoder models raise ``NotImplementedError``
+naming their ROADMAP item.
 
 A LOCAL_ATTN cache is a ring of w = min(local_window, capacity) slots,
 token t in slot t % w, and decodes with ``kv_len = min(pos + 1, w)`` and no
@@ -21,17 +26,24 @@ from it there (ROADMAP queue 3).
 
 Step builders:
 
+* ``make_train_step``  — loss + grads + optimizer update (training shapes)
 * ``make_prefill_step`` — forward + cache construction (prefill shapes)
 * ``make_serve_step``  — one-token decode against a cache (decode shapes)
-* ``make_train_step``  — not ported yet (raises)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import (
     ATTN,
@@ -51,7 +63,9 @@ from repro_torch.models.common import (
     init_from_specs,
     norm_specs,
     softcap,
+    tree_leaves,
     tree_map,
+    tree_unflatten,
 )
 from repro_torch.models.layers import (
     attention,
@@ -70,7 +84,6 @@ UNPORTED = {
     MLSTM: "queue 1, item 10d (xLSTM and Whisper)",
     SLSTM: "queue 1, item 10d (xLSTM and Whisper)",
     "encdec": "queue 1, item 10d (xLSTM and Whisper)",
-    "train": "queue 1, item 10c (the training path)",
 }
 
 
@@ -247,6 +260,13 @@ def _layer(tree: Any, i: int) -> Any:
     return tree_map(lambda a: a[i], tree)
 
 
+def _unstack(tree: Any, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf unbound once (views)."""
+    parts = tree_map(lambda a: a.unbind(0), tree, is_leaf=lambda a: isinstance(a, torch.Tensor))
+    return [tree_map(lambda u: u[i], parts, is_leaf=lambda u: isinstance(u, tuple))
+            for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Whole-model forward
 # ---------------------------------------------------------------------------
@@ -290,14 +310,26 @@ class Model:
             x = x + params["pos_embed"][:s].to(x.dtype)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         built: list[list[dict]] = [[] for _ in cfg.pattern]
-        for c in range(cfg.cycles):
+
+        def cycle(xc, cycle_params):
+            aux = torch.zeros((), dtype=torch.float32, device=xc.device)
             for j, kind in enumerate(cfg.pattern):
-                x, layer_cache, aux = block_forward(
-                    cfg, kind, _layer(params["blocks"][j], c), x, positions, causal=True
+                xc, layer_cache, a = block_forward(
+                    cfg, kind, cycle_params[j], xc, positions, causal=True
                 )
-                aux_total = aux_total + aux
+                aux = aux + a
                 if build_cache:
                     built[j].append(layer_cache)
+            return xc, aux
+
+        if not build_cache and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tree_leaves(params)
+        ):
+            cycle = _maybe_remat(cfg, cycle)
+        layers = [_unstack(blk, cfg.cycles) for blk in params["blocks"]]
+        for c in range(cfg.cycles):
+            x, aux = cycle(x, [per_cycle[c] for per_cycle in layers])
+            aux_total = aux_total + aux
         rem_built = []
         for j, kind in enumerate(cfg.remainder):
             x, layer_cache, aux = block_forward(
@@ -416,14 +448,78 @@ class Model:
         x = apply_norm(cfg.norm_kind, params["final_norm"], x)
         return self.unembed(params, x), cache
 
+    # -- loss ---------------------------------------------------------------
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token NLL of ``batch["labels"]`` under float32
+        log-softmax logits, plus the MoE router aux (a 0-d float32)."""
+        logits, _, aux = self.forward(
+            params,
+            tokens=batch.get("tokens"),
+            inputs_embeds=batch.get("inputs_embeds"),
+            encoder_embeds=batch.get("encoder_embeds"),
+        )
+        labels = batch["labels"].to(torch.int64)
+        nll = F.cross_entropy(logits.flatten(0, -2), labels.flatten(), reduction="mean")
+        return nll + aux
+
+
+#: The matmuls with no batch dims (``x @ w`` folds to ``mm``): what
+#: ``remat="dots"`` keeps, as the reference's
+#: ``checkpoint_dots_with_no_batch_dims`` does; everything else, the
+#: kernels' Functions included, is recomputed in the backward.
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in _NO_BATCH_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` rematerialized per ``cfg.remat``: ``"none"`` keeps every
+    activation, ``"full"`` recomputes the whole cycle in the backward,
+    ``"dots"`` keeps the no-batch-dim matmuls' outputs and recomputes the
+    rest."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
 
 # ---------------------------------------------------------------------------
 # Step builders
 # ---------------------------------------------------------------------------
 
 
-def make_train_step(cfg: ModelConfig, optimizer=None) -> Callable:
-    raise NotImplementedError(f"training is not ported yet (ROADMAP {UNPORTED['train']})")
+def make_train_step(cfg: ModelConfig, optimizer) -> Callable:
+    """(params, opt_state, batch) → (params, opt_state, metrics).
+
+    ``batch`` holds ``tokens`` and ``labels`` as int tensors on the
+    parameters' device.  The gradients of :meth:`Model.loss` go through
+    the kernels' autograd Functions on the card; the optimizer's
+    :meth:`~repro_torch.optim.AdamW.apply` then gives ``(p + u).to(p.dtype)``
+    leaf by leaf, as the reference's step does, and spends ``opt_state``
+    (its moments are updated in place).  ``metrics`` holds the loss and
+    the gradients' global norm as 0-d tensors: nothing is read back to the
+    host.
+    """
+    model = Model(cfg)
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        live = [p.detach().requires_grad_() for p in leaves]
+        loss = model.loss(tree_unflatten(params, live), batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+        del live
+        grads = tree_unflatten(params, list(grads))
+        params, opt_state = optimizer.apply(grads, opt_state, params)
+        gnorm = optimizer.global_norm(grads)
+        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:

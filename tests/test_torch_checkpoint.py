@@ -225,6 +225,51 @@ def test_layout_matches_the_reference_leaf_for_leaf(tmp_path):
     assert port_a[0].dtype == np.uint16  # "a": the bf16 leaf, first in order
 
 
+def test_params_and_adamw_state_match_the_reference_leaf_for_leaf(tmp_path):
+    """A trainer checkpoint, ``(params, AdamWState)``: the reference
+    flattens its registered dataclass in field order (step, m, v), the port
+    describes it so; the two npz files hold equal leaves in the same order,
+    and the port's round-trips (the dataclass restored, bf16 included)."""
+    import jax
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    from repro.optim import AdamW as RefAdamW
+    from repro_torch.models.weights import to_torch
+    from repro_torch.optim import AdamW, AdamWState
+
+    rng = np.random.default_rng(2)
+    host = {"w": rng.standard_normal((3, 4)).astype(ml_dtypes.bfloat16),
+            "blocks": [{"z": rng.standard_normal((2, 5)).astype(np.float32),
+                        "a": rng.standard_normal(5).astype(ml_dtypes.bfloat16)}]}
+    grads = {"w": np.full((3, 4), 0.01, np.float32),
+             "blocks": [{"z": np.full((2, 5), -0.02, np.float32),
+                         "a": np.full(5, 0.03, np.float32)}]}
+    ref_p = jax.tree.map(jnp.asarray, host)
+    _, ref_state = RefAdamW().update(jax.tree.map(jnp.asarray, grads), RefAdamW().init(ref_p),
+                                     ref_p)
+    port_p = to_torch(host)
+    _, port_state = AdamW().update(to_torch(grads), AdamW().init(port_p), port_p)
+    RefManager(str(tmp_path / "ref")).save(4, (ref_p, ref_state))
+    mgr = CheckpointManager(str(tmp_path / "port"))
+    mgr.save(4, (port_p, port_state))
+    arrays = []
+    for side in ("ref", "port"):
+        with np.load(tmp_path / side / "step_0000000004" / "arrays.npz") as z:
+            arrays.append([z[k] for k in z.files])
+    assert len(arrays[0]) == len(arrays[1]) == 3 + 1 + 3 + 3  # params, step, m, v
+    for x, y in zip(*arrays):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(x, y)
+    (params, state), meta = mgr.restore()
+    assert meta == {"step": 4} and isinstance(state, AdamWState)
+    _assert_same_tree(params, port_p)
+    assert int(state.step) == 1 and state.step.dtype == torch.int32
+    _assert_same_tree(state.m, port_state.m)
+    _assert_same_tree(state.v, port_state.v)
+    assert params["w"].dtype == torch.bfloat16
+
+
 def test_keep_retention_prunes_after_commit(tmp_path):
     mgr = CheckpointManager(str(tmp_path / "ck"), keep=2)
     for step in (1, 2, 3, 4):

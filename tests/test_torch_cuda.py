@@ -1162,3 +1162,109 @@ def test_cluster_refuses_cuda_once_the_caller_initialized_it(cuda):
         make_engine(real_job_3(keygroups_per_op=8), 4, config=ExecutionConfig.workers(2),
                     device="cuda")
     assert set(multiprocessing.active_children()) == before
+
+
+# ---------------------------------------------------------------------------
+# The LM kernels' autograd Functions: gradients on the card against autograd
+# of the plain versions (relative norm error per input; f32 1e-4, bf16 2e-2),
+# with a non-contiguous upstream gradient.
+# ---------------------------------------------------------------------------
+
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30))
+
+
+def _grads_close(fn, ref_fn, ins, dtype, gen):
+    out = fn(*ins)
+    assert out.grad_fn is not None and "Fn" in type(out.grad_fn).__name__
+    dy = torch.randn(out.shape[::-1], generator=gen, device=out.device).to(dtype).permute(
+        *reversed(range(out.dim())))  # a transposed (non-contiguous) gradient
+    assert not dy.is_contiguous()
+    got = torch.autograd.grad(out, ins, dy)
+    want = torch.autograd.grad(ref_fn(*ins), ins, dy)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _rel(g, w) <= GRAD_RTOL[dtype], (_rel(g, w), g.shape)
+    return got
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64), (torch.bfloat16, 32),
+                                      (torch.bfloat16, 128), (torch.bfloat16, 106),
+                                      (torch.float32, 20)],
+                         ids=["f32", "bf16-mma", "bf16-wgmma", "bf16-hd106", "f32-hd20"])
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_attention_function_gradients_match_plain(cuda, dtype, hd, window):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    ins = [(torch.randn(shape, generator=gen, device=cuda) * 0.5).to(dtype).requires_grad_()
+           for shape in ((2, 80, 6, hd), (2, 80, 2, hd), (2, 80, 2, hd))]
+    reset_launch_counts()
+    _grads_close(lambda *t: flash_attention(*t, window=window),
+                 lambda *t: attention_ref(*t, window=window), ins, dtype, gen)
+    assert flash_attention.launches == 1 and flash_attention.backward_launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rglru_scan_function_gradients_match_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    a = torch.rand((3, 70, 48), generator=gen, device=cuda).to(dtype).requires_grad_()
+    b = torch.randn((3, 70, 48), generator=gen, device=cuda).to(dtype).requires_grad_()
+    h0 = torch.randn((3, 48), generator=gen, device=cuda).requires_grad_()
+    reset_launch_counts()
+    _grads_close(rglru_scan, rglru_scan_ref, [a, b, h0], dtype, gen)
+    assert rglru_scan.launches == 2 and rglru_scan.backward_launches == 1
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 40), (torch.bfloat16, 8),
+                                     (torch.bfloat16, 96)], ids=["f32", "bf16-mma", "bf16-wgmma"])
+def test_moe_gemm_function_gradients_match_plain(cuda, dtype, c):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((6, c, 64), generator=gen, device=cuda).to(dtype)
+    x[2] = 0  # an expert no token reached: its dw is exactly 0
+    x.requires_grad_()
+    w = (torch.randn((6, 64, 48), generator=gen, device=cuda) * 0.125).to(dtype).requires_grad_()
+    reset_launch_counts()
+    _, dw = _grads_close(moe_gemm, moe_gemm_ref, [x, w], dtype, gen)
+    assert not dw[2].any() and dw[1].any()
+    assert moe_gemm.launches == 2 and moe_gemm.backward_launches == 1
+
+
+def test_wrappers_take_no_function_without_grad(cuda):
+    x = torch.randn((2, 8, 16), device=cuda, requires_grad=True)
+    w = torch.randn((2, 16, 8), device=cuda)
+    with torch.no_grad():
+        assert moe_gemm(x, w).grad_fn is None
+    assert moe_gemm(x.detach(), w).grad_fn is None
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "recurrentgemma_2b", "moonshot_v1_16b_a3b"])
+def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    """One float32 make_train_step step of a SMOKE config on the card (the
+    Functions, remat "full") against the same on the CPU (plain versions)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backward_launch_counts
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    cpu = init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 33)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamW(learning_rate=1e-3)
+    want = make_train_step(cfg, opt)(cpu, opt.init(cpu), batch)
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    reset_launch_counts()
+    got = make_train_step(cfg, opt)(card, opt.init(card),
+                                    {k: v.to(cuda) for k, v in batch.items()})
+    counts, back = launch_counts(), backward_launch_counts()
+    assert counts["flash_attention"] > 0
+    assert (back["rglru_scan"] > 0) == (arch == "recurrentgemma_2b")
+    assert (back["moe_gemm"] > 0) == (arch == "moonshot_v1_16b_a3b")
+    torch.testing.assert_close(got[2]["loss"].cpu(), want[2]["loss"], atol=1e-4, rtol=1e-4)
+    for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-3, rtol=1e-3)

@@ -306,9 +306,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         flash_attention(q, k.to(torch.bfloat16), k)
     with pytest.raises(ValueError):
         flash_attention(q, torch.zeros(1, 8, 3, 32), torch.zeros(1, 8, 3, 32))
-    with pytest.raises(ValueError):
-        flash_attention(torch.zeros(1, 8, 4, 12), torch.zeros(1, 8, 2, 12),
-                        torch.zeros(1, 8, 2, 12))
+    with pytest.raises(ValueError):  # past the kernel's largest head dim
+        flash_attention(torch.zeros(1, 8, 4, 264), torch.zeros(1, 8, 2, 264),
+                        torch.zeros(1, 8, 2, 264))
     with pytest.raises(ValueError):
         flash_attention(q, k, k, window=0)
     with pytest.raises(ValueError):

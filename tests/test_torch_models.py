@@ -151,9 +151,22 @@ def test_unported_configs_raise_naming_roadmap(arch):
         init_params(cfg, 0, device="cpu")
 
 
-def test_train_step_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        make_train_step(get_config("glm4_9b", smoke=True))
+def test_train_step_runs():
+    """The training path is ported: one step of a SMOKE config changes the
+    parameters, keeps their dtypes and reports a finite loss and norm."""
+    from repro_torch.optim import AdamW
+
+    cfg = get_config("glm4_9b", smoke=True)
+    params = init_params(cfg, 0, device="cpu")
+    opt = AdamW(learning_rate=1e-3)
+    tokens = torch.from_numpy(_tokens(cfg, 2, 9, 3))
+    new, state, metrics = make_train_step(cfg, opt)(
+        params, opt.init(params), {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+    assert int(state.step) == 1
+    for old, leaf in zip(tree_leaves(params), tree_leaves(new)):
+        assert leaf.dtype == old.dtype and leaf.shape == old.shape
+        assert not torch.equal(leaf, old)
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,11 @@ under the compiled tier, ``.jit()``, and on a supervised two-worker cluster
 with checkpoints, a planted kill and a respawn), Real Jobs 1 (``.typed()``)
 and 4 (``.jit()``) with the three baselines on their snapshots, a skew
 scenario, the ``Engine`` guard against ``.workers(n)``, fused ticks and a K-tick scan of
-the fused superstep (``repro_torch.engine.superstep``) and one SMOKE decode
+the fused superstep (``repro_torch.engine.superstep``), one SMOKE decode
 tick of the serve loop for a dense, a hybrid (RG-LRU + windowed attention)
-and a MoE config in a subprocess where ``import jax`` and ``import repro``
-fail.
+and a MoE config, and one CPU train step (the optimizer, the token
+pipeline, the trainer's config) in a subprocess where ``import jax`` and
+``import repro`` fail.
 """
 
 import ast
@@ -189,6 +190,28 @@ for arch in ("glm4_9b", "recurrentgemma_2b", "moonshot_v1_16b_a3b"):
     worker.occupant[0], worker.positions[0], worker.tokens[0, 0] = 0, 5, 1
     n, secs = worker.decode_tick()
     assert n == 1 and secs > 0 and worker.positions[0] == 6
+import torch
+import repro_torch.optim, repro_torch.data.pipeline, repro_torch.launch.train
+from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+from repro_torch.models import make_train_step
+from repro_torch.optim import AdamW, cosine_schedule
+cfg = repro_torch.launch.train.reduced_config("llama3_2_3b", 64, 2, 512)
+params = init_params(cfg, 0, device="cpu")
+opt = AdamW(learning_rate=cosine_schedule(1e-3, 2, 10))
+batch = TokenPipeline(PipelineConfig(vocab_size=512, seq_len=16, global_batch=4,
+                                     num_shards=2)).next_batch()
+params, state, metrics = make_train_step(cfg, opt)(
+    params, opt.init(params), {k: torch.from_numpy(v) for k, v in batch.items()})
+assert int(state.step) == 1 and float(metrics["loss"]) > 0
+import contextlib, io
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    run = repro_torch.launch.train.main(
+        "--d-model 64 --layers 2 --vocab 512 --steps 4 --spl-steps 2 --batch 4 --seq-len 16 "
+        "--num-shards 4 --num-workers 2 --device cpu".split()
+        + ["--ckpt-dir", os.path.join(os.environ["CKDIR"], "train")])
+assert len(run["periods"]) == 2 and len(run["losses"]) == 4
+assert printed.getvalue().splitlines()[-1] == "[train] done"
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.metrics.sink_tuples)
