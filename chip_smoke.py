@@ -25,10 +25,14 @@ error or mismatch:
    airline keys beside a same-bytes ``ids.copy_(keys)``, rglru_scan beside
    a same-bytes ``torch.add(a, b, out=o)`` (yardsticks only: no single call
    computes either function); flash at the GLM, Moonlight and RecurrentGemma
-   (head_dim 256) prefills' shapes, with a planted fault at head_dim 128 and
-   at 256;
-   decode attention at the three models' decode shapes beside SDPA given the
-   same length mask, and moe_gemm's decode and serve products (dense x, and
+   (head_dim 256) prefills' shapes and at Whisper-small's three (head_dim
+   64: the encoder unmasked at S = T = 1,500, the decoder's causal self
+   attention at S = 384, cross attention at S = 384 over T = 1,500), with a
+   planted fault (a dropped KV tile) at head_dim 128, at 256 and at each of
+   Whisper's shapes;
+   decode attention at the three models' decode shapes and at Whisper's
+   (G = 1, head_dim 64: self at kv_len 416 of 448, cross at kv_len 1,500)
+   beside SDPA given the same length mask, and moe_gemm's decode and serve products (dense x, and
    x from a real top-6 dispatch, whose dead experts the kernel skips, held
    exactly equal to the same body without the skip) beside ``torch.bmm``.
    These decode-shape times, and the partition's and the scan's, are each
@@ -38,7 +42,7 @@ error or mismatch:
    few microseconds on the card can take longer than that on the host;
 3. the engine path at full size: Real Job 3 (airline → extract → sumdelay →
    routedelay) with 1000 key groups per operator on 16 nodes, one 2^20-tuple
-   airline batch per tick for 6 ticks, every routed hop through both
+   airline batch per tick for 5 ticks, every routed hop through both
    routing kernels; the first 3 ticks are held bit-identical (sink counts
    and every key group's state) to the port's own ``device="cpu"`` engine
    on the same batches, tuple counts are conserved, and tuples/s and the
@@ -56,7 +60,8 @@ error or mismatch:
    segment size (3 rounds);
 3r. Real Jobs 1 and 4 at phase 3's deployment (1000 key groups per
    operator, 16 nodes; 2^20 wiki or airline tuples a tick, weather at a
-   quarter of that) under ``.typed()`` for 6 ticks and the drain: job 1
+   quarter of that) under ``.typed()`` for 5 ticks (job 4: 4) and the
+   drain: job 1
    (wiki → geohash → windowed TopK, top 10, windows of 1 tick → global
    TopK) held bit-identical to the port's ``device="cpu"`` engine on every
    tick, job 4 (job 3 + weather → rainscore → join → efficiency → store) on
@@ -94,7 +99,7 @@ error or mismatch:
 3w. the supervised multi-worker runtime (``repro_torch.engine.cluster``) at
    phase 3's size, in a fresh interpreter (``--workers``: the coordinator
    forks card workers, so it makes no CUDA call until its pools are
-   closed): (a) ``.workers(4)`` driven in lockstep over 6 batches and the
+   closed): (a) ``.workers(4)`` driven in lockstep over 4 batches and the
    drain, every field ``tests/conformance.py`` pins for ``+workers`` held
    against the single-process card engine on the same batches (sink
    outputs and their order, state bytes, counts, arrivals exactly;
@@ -199,9 +204,35 @@ error or mismatch:
    the last checkpoint's step, cursor and assignment for one more period;
    (d) 2 steps of RecurrentGemma-2B at full width and depth and of the
    trainer's MoE config (rglru_scan and moe_gemm forward and backward);
+   (a) also holds Whisper-small at full width and depth in f32 (8 clips of
+   1,500 frames, 8 x 448 tokens; encoder, self and cross attention through
+   flash's Function, the planted fault its wrapper without the Function),
+   and (e) runs 2 steps each of xLSTM-1.3B (8 x 512 tokens: two mLSTM
+   chunks) and Whisper-small (16 clips x 1,500 frames, 16 x 448 tokens),
+   remat ``"full"``, every leaf changed or listed with its reason;
+10. xLSTM-1.3B at full width and depth (48 layers: 6 x (7 mLSTM + 1
+   sLSTM), d_model 2,048, 4 heads of 512, vocab 50,304) through
+   ``run_lm``: 8 prompts of 2,048 tokens (8 mLSTM chunks) prefilled with
+   ``build_cache``, the sLSTM layers' share of the prefill timed apart, 16
+   greedy decode steps; no kernel is on its path, and none may launch;
+   ``check_chunk_boundary``: in f32 on the first cycle (8 layers) and 2
+   prompts, a 256-token prefill and teacher-forced decode through position
+   511 against the port's own 512-token forward, with the carry read as
+   Cᵀq (the reference's contraction) as a planted fault; the serve loop's
+   migrations move every C, n, m, c, h row;
+11. Whisper-small at full width and depth (12 encoder and 12 decoder
+   layers, d_model 768, 12 heads of 64, vocab 51,865) through ``run_lm``:
+   16 clips of 1,500 seeded frame embeddings and 384-token prompts through
+   ``Model.forward(build_cache=True, cache_capacity=448)`` (36 flash
+   launches: 12 encoder, 12 decoder self, 12 cross), 32 greedy decode
+   steps (24 decode launches each: 12 self, 12 cross), every launch of one
+   more prefill and decode step paired with its plain version, the first
+   decoded token held against a full forward in f32 on 2 decoder and 2
+   encoder layers; the serve loop decodes against an empty encoder (the
+   reference's ``DecodeWorker``), so its cross sublayers launch nothing;
 
 then one JSON line listing the kernels with their launches on the paths
-that run them (phases 3, 3j, 3r, 3s, 3w, 4 and 4s for routing, 5-9 for the LM
+that run them (phases 3, 3j, 3r, 3s, 3w, 4 and 4s for routing, 5-11 for the LM
 kernels; phase 9's also apart, with its backward launches), times,
 bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
 and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
@@ -237,10 +268,10 @@ SRC = ROOT / "src"
 BATCH = 1 << 20
 NODES = 16
 KGS = 1000
-# 6 ticks (20 until phases 3r and 4s joined the script, 10 until phase 9
-# did: each phase runs whole 2^20-tuple batches, and the script keeps to its
-# time limit).
-TICKS = 6
+# 5 ticks (20 until phases 3r and 4s joined the script, 10 until phase 9
+# did, 6 until phases 10 and 11 did: each phase runs whole 2^20-tuple
+# batches, and the script keeps to its time limit).
+TICKS = 5
 CHECK_TICKS = 3
 DRAIN_TICKS = 4
 CTL_KGS, CTL_NODES, CTL_RATE, CTL_TICKS, CTL_PERIODS = 30, 8, 220.0, 10, 6
@@ -278,6 +309,29 @@ RG_CHECK_CYCLES = 1  # (rglru, rglru, local_attn): an attention layer included
 MOE_ARCH, MOE_CONTEXT, MOE_SERVE_CONTEXT = "moonshot_v1_16b_a3b", 2560, 1024
 MOE_BATCH, MOE_PROMPT, MOE_DECODE_STEPS = 4, 2048, 8
 SCAN_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_kernels.py:149
+# Phase 10: xLSTM-1.3B at full width and depth (48 layers: 6 x (7 mLSTM + 1
+# sLSTM), d_model 2,048, 4 heads of 512); 8 prompts of 2,048 tokens (8
+# mLSTM chunks).  Its chunk-boundary check: the first cycle (8 layers) on
+# 2 prompts, a 256-token prefill, then teacher-forced decode through
+# position 511, every position held against the port's own 512-token
+# (two-chunk) forward, gated in float64 at XL_TOL, and measured (not gated)
+# in float32.  At this width and the reference's init the f32 logits are
+# ill-conditioned: the f32 forward's distance from the f64 one, which the
+# check prints beside its own, is of the order of the logits themselves
+# (PERF.md §4).  In float64 (the recurrences and norms; the logits are
+# rounded to f32 at the end) both orders agree to the logits' rounding,
+# which XL_TOL leaves room for; the planted fault (the carry read as Cᵀq,
+# the reference's contraction) moves them by ~1.
+XL_ARCH, XL_CONTEXT = "xlstm_1_3b", 2064
+XL_BATCH, XL_PROMPT, XL_DECODE_STEPS = 8, 2048, 16
+XL_PREFIX, XL_TOTAL, XL_ROWS = 256, 512, 2
+XL_TOL = dict(atol=1e-4, rtol=1e-5)
+# Phase 11: Whisper-small at full width and depth (12 encoder and 12
+# decoder layers, d_model 768, 12 heads of 64): 16 clips of 1,500 frame
+# embeddings (30 s of audio at the encoder's 50 frames a second) and
+# decoder prompts of 384 tokens in a 448-slot cache, 32 decode steps.
+WH_ARCH, WH_CONTEXT, WH_FRAMES = "whisper_small", 448, 1500
+WH_BATCH, WH_PROMPT, WH_DECODE_STEPS = 16, 384, 32
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the 32-bit
 # non-tensor-core rate, which bounds the routing kernels' integer lanes, and
@@ -755,7 +809,16 @@ DECODE_SHAPES = (
     ("GLM-4-9B", LM_BATCH, LM_CONTEXT, 2, 16, 128, LM_PROMPT + LM_DECODE_STEPS),
     ("Moonlight", MOE_BATCH, MOE_CONTEXT, 16, 1, 128, MOE_PROMPT + MOE_DECODE_STEPS),
     ("RecurrentGemma ring", RG_BATCH, 2048, 1, 10, 256, 2048),
+    ("Whisper self", WH_BATCH, WH_CONTEXT, 12, 1, 64, WH_PROMPT + WH_DECODE_STEPS),
+    ("Whisper cross", WH_BATCH, WH_FRAMES, 12, 1, 64, WH_FRAMES),
 )
+#: Whisper-small's prefill attention (phase 11), timed in phase 2: (what, S,
+#: T, causal).  The encoder over 1,500 frames without a mask (a ragged edge
+#: of neither 64 nor 128 rows), the decoder's causal self attention over
+#: its 384-token prompts, and its cross attention over the encoder.
+WHISPER_FLASH = (("Whisper encoder", WH_FRAMES, WH_FRAMES, False),
+                 ("Whisper decoder self", WH_PROMPT, WH_PROMPT, True),
+                 ("Whisper cross", WH_PROMPT, WH_FRAMES, False))
 
 
 def decode_timed_case(dev, what: str, b: int, t: int, kv: int, g: int, hd: int, live_len: int,
@@ -787,8 +850,9 @@ def decode_timed_case(dev, what: str, b: int, t: int, kv: int, g: int, hd: int, 
                           path, hd, g)
     # One tile a split (every split ends on its tile's last key), and one key more.
     split_end = dec_ops.TILE_KEYS[path] * nsplit
-    lens = torch.tensor([1, t, 63, split_end, split_end + 1, 1000, t - 1, 65][:b],
-                        dtype=torch.int32, device=dev)
+    edges = [1, t, 63, split_end, split_end + 1, 1000, t - 1, 65]
+    lens = torch.tensor([min(n, t) for n in (edges + [t] * b)[:b]], dtype=torch.int32,
+                        device=dev)
     got = decode_attention(q, kc, vc, lens)
     torch.cuda.synchronize()
     err, rel = row_check(f"decode_attention ({what}) against its plain version", got,
@@ -801,11 +865,18 @@ def decode_timed_case(dev, what: str, b: int, t: int, kv: int, g: int, hd: int, 
     # reaches the merge.
     fault, fault_bad = planted_fault(f"decode ({what}) without its last 16 keys",
                                      decode_attention(q, kc, vc, steady - 16), steady_ref)
-    dropped = torch.empty_like(q)
-    dec_ops.launch(q, kc, vc, steady, dropped, path=path, nsplit=nsplit, drop_last_split=True)
-    fault2, fault2_bad = planted_fault(f"decode ({what}) without the last split to arrive",
-                                       dropped, steady_ref)
-    check(nsplit > 1, f"decode ({what}) ran one split: the dropped-split fault plants nothing")
+    # With as many (row, KV head) pairs as SMs or more (Whisper's 16 x 12),
+    # each pair is one split and nothing merges: only the first fault applies.
+    fault2, fault2_bad = float("inf"), 0
+    if nsplit > 1:
+        dropped = torch.empty_like(q)
+        dec_ops.launch(q, kc, vc, steady, dropped, path=path, nsplit=nsplit,
+                       drop_last_split=True)
+        fault2, fault2_bad = planted_fault(f"decode ({what}) without the last split to arrive",
+                                           dropped, steady_ref)
+        del dropped
+    check(nsplit > 1 or b * kv >= torch.cuda.get_device_properties(dev).multi_processor_count,
+          f"decode ({what}) ran one split: the dropped-split fault plants nothing")
     note = ""
     if pair_with_flash:
         # The two kernels against each other on the same inputs: flash over
@@ -815,7 +886,7 @@ def decode_timed_case(dev, what: str, b: int, t: int, kv: int, g: int, hd: int, 
         err3, rel3 = row_check(f"flash_attention (causal=False) against decode_attention "
                                 f"({what}) on the same inputs", pair, got)
         note = f"; flash vs decode on the same inputs: max err {err3}, row error {rel3:.3e}"
-    del got, dropped
+    del got
     copies = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(ROTATE - 1)]
     tcopies = [tuple(x.transpose(1, 2).contiguous() for x in (q, a, c)) for a, c in copies]
     mask = (torch.arange(t, device=dev)[None, :] < steady[:, None])[:, None, None, :]
@@ -834,8 +905,10 @@ def decode_timed_case(dev, what: str, b: int, t: int, kv: int, g: int, hd: int, 
         f"by {b_by} ({b_ms / kern_t['device_ms']:.1%} of it on the device); caches rotated over "
         f"{ROTATE} copies, {ROUNDS} rounds; max_abs_err={max(err, err2)} "
         f"max_row_rel_err={max(rel, rel2):.3e} (kv_len {lens.tolist()}); planted faults: last "
-        f"16 keys dropped, row error {fault:.3e} ({fault_bad} elements outside ATTN_TOL); last "
-        f"split dropped from the merge, row error {fault2:.3e} ({fault2_bad} outside){note}")
+        f"16 keys dropped, row error {fault:.3e} ({fault_bad} elements outside ATTN_TOL); "
+        + (f"last split dropped from the merge, row error {fault2:.3e} ({fault2_bad} outside)"
+           if nsplit > 1 else "one split a (row, KV head): no merge to drop from")
+        + note)
     del copies, tcopies, q, kc, vc
     return dict(
         shape=f"{what}: q ({b},1,{h},{hd}) caches ({b},{t},{kv},{hd}) bf16 kv_len {live_len}",
@@ -854,47 +927,58 @@ def flash_rate(b, s, h, hd, ms, b_ms) -> str:
 
 def flash_timed_case(dev, what: str, b: int, s: int, h: int, kv: int, hd: int,
                      window: int | None, seed: int, reps: int = 5,
-                     fault: bool = False) -> dict:
-    """The flash kernel at a prefill's shape (causal, S = T, bf16) against
-    its plain version, timed beside it and beside SDPA; with ``fault``, a
-    planted fault (a window of S - 64 held against full causal) must fail
-    the row check.  With S <= window the window masks nothing, so SDPA with
-    ``is_causal`` is the same function."""
+                     fault: bool = False, t: int | None = None, causal: bool = True) -> dict:
+    """The flash kernel at a prefill's shape (bf16; causal with S = T
+    unless ``t`` keys or ``causal=False`` are given) against its plain
+    version, timed beside it and beside SDPA; with ``fault``, a planted
+    fault must fail the row check: the first KV tile (64 keys) dropped, for
+    the last rows of a causal case (a window of S - 64 held against full
+    causal), for every row of an unmasked one.  With S <= window the window
+    masks nothing, so SDPA with ``is_causal`` is the same function."""
     import torch
 
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    t = s if t is None else t
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev).to(torch.bfloat16)
-               for n in (h, kv, kv))
-    got = flash_attention(q, k, v, causal=True, window=window)
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, t, kv, hd, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    ref = attention_ref(q, k, v, causal=True, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
     err, rel = row_check(f"flash_attention ({what}) against its plain version", got, ref)
-    case = dict(shape=f"q ({b},{s},{h},{hd}) k/v ({b},{s},{kv},{hd}) bf16 causal window={window}",
+    mask = f"causal window={window}" if causal else "no mask"
+    case = dict(shape=f"q ({b},{s},{h},{hd}) k/v ({b},{t},{kv},{hd}) bf16 {mask}",
                 max_abs_err=err, max_row_rel_err=rel)
     note = ""
     if fault:
-        # Planted fault: a window of s - 64 drops up to 64 keys (the first
-        # KV tile) from the last rows.
-        full = ref if window is None or window >= s else attention_ref(q, k, v, causal=True)
-        rel_f, bad_f = planted_fault(f"flash ({what}) without the first KV tile of the last rows",
-                                     flash_attention(q, k, v, causal=True, window=s - 64), full)
+        if causal:
+            # A window of s - 64 drops up to 64 keys (the first KV tile)
+            # from the last rows.
+            full = ref if window is None or window >= s else attention_ref(q, k, v, causal=True)
+            faulty = flash_attention(q, k, v, causal=True, window=s - 64)
+        else:
+            full = ref
+            faulty = flash_attention(q, k[:, 64:].contiguous(), v[:, 64:].contiguous(),
+                                     causal=False)
+        rel_f, bad_f = planted_fault(f"flash ({what}) without its first KV tile", faulty, full)
         case["planted_fault_row_rel_err"] = rel_f
-        note = (f"; planted fault (first KV tile dropped for the last rows): row error "
-                f"{rel_f:.3e}, {bad_f} elements outside ATTN_TOL")
+        note = (f"; planted fault (first KV tile dropped{' for the last rows' if causal else ''})"
+                f": row error {rel_f:.3e}, {bad_f} elements outside ATTN_TOL")
     del got, ref
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = cuda_ms(lambda i: flash_attention(q, k, v, causal=True, window=window), reps)
-    plain = cuda_ms(lambda i: attention_ref(q, k, v, causal=True, window=window), 2)
-    lib = cuda_ms(lambda i: sdpa(qt, kt, vt, is_causal=True), reps)
-    flops = 4 * b * h * hd * (s * (s + 1) // 2)
+    ms = cuda_ms(lambda i: flash_attention(q, k, v, causal=causal, window=window), reps)
+    plain = cuda_ms(lambda i: attention_ref(q, k, v, causal=causal, window=window), 2)
+    lib = cuda_ms(lambda i: sdpa(qt, kt, vt, is_causal=causal), reps)
+    pairs = s * (s + 1) // 2 if causal else s * t  # (query, key) pairs a head attends
+    flops = 4 * b * h * hd * pairs
     b_ms, b_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), flops, BF16_FLOPS_PER_S)
-    log(f"[kernel] flash_attention {what}: B={b} S={s} H={h} KV={kv} hd={hd} window={window}: "
+    log(f"[kernel] flash_attention {what}: B={b} S={s} T={t} H={h} KV={kv} hd={hd} {mask}: "
         f"{ms:.4f} ms (plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
-        f"{flash_rate(b, s, h, hd, ms, b_ms)}), max_abs_err={err} max_row_rel_err={rel:.3e}"
-        f"{note}")
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound), max_abs_err={err} "
+        f"max_row_rel_err={rel:.3e}{note}")
     case.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
     return case
 
@@ -1970,7 +2054,9 @@ def run_controller(dev, *, kgs: int, nodes: int, rate: float, ticks: int, period
 # Real Jobs 1 and 4 at phase 3's deployment: 1000 key groups per operator,
 # 16 nodes, 2^20-tuple wiki and airline batches a tick, weather at a
 # quarter of that (benchmarks/real_jobs.py:296-300).
-RJ_TICKS = 5  # (8 asked; 6 until phase 9 joined the script)
+# Ticks fed to each job (8 asked; 6 until phase 9 joined the script, job 4's
+# 5 until phases 10 and 11 did).
+RJ_TICKS = {"job1": 5, "job4": 4}
 # Job 1's TopK window, in ticks of stream time (every tuple of tick t has ts
 # t): topk closes windows at ts 1 to 5, global_topk (whose window opens at
 # ts 1) at 2 to 5, so four windows reach the sink within the 6 ticks.
@@ -1979,7 +2065,7 @@ RJ_TOPK = 10
 RJ_DRAIN = {"job1": 4, "job4": 6}  # each job's depth in hops
 # Ticks held against the CPU engine: all of job 1's (its windows close
 # late), the first 4 of job 4's (its join first holds state at tick 2).
-RJ_CHECK = {"job1": RJ_TICKS + RJ_DRAIN["job1"], "job4": 4}
+RJ_CHECK = {"job1": RJ_TICKS["job1"] + RJ_DRAIN["job1"], "job4": 4}
 RJ_MIG_TICK = 3  # job 4's join key group: redirect before this tick, install after it
 # Hops whose partition key is not an integer, hashed on the host in both
 # packages (Python's per-interpreter salted ``hash`` of each string or
@@ -2023,7 +2109,7 @@ def sinks_close(a: list, b: list) -> bool:
 
 def run_real_job(dev, job: str, *, batch: int, kgs: int, nodes: int, config=None,
                  typed=None) -> dict:
-    """One real job on the card for ``RJ_TICKS`` ticks plus its drain.
+    """One real job on the card for ``RJ_TICKS[job]`` ticks plus its drain.
     Under ``.typed()`` the first ``RJ_CHECK[job]`` ticks are held
     bit-identical to the port's CPU engine on the same batches (sink
     outputs in order, every key group's state bytes, tuple counts, arrival
@@ -2039,7 +2125,7 @@ def run_real_job(dev, job: str, *, batch: int, kgs: int, nodes: int, config=None
     config = config or ExecutionConfig.typed()
     jit = config.use_fn_jit
     tag = f"realjobs/{job}" + ("/jit" if jit else "")
-    ticks, drain, check_ticks = RJ_TICKS, RJ_DRAIN[job], RJ_CHECK[job]
+    ticks, drain, check_ticks = RJ_TICKS[job], RJ_DRAIN[job], RJ_CHECK[job]
     feeds = real_job_feeds(job, ticks, batch)
 
     def make(device):
@@ -2527,11 +2613,11 @@ def run_skew(dev, *, batch: int = BATCH, key_space: int = BATCH, kgs: int = KGS,
 # initialized CUDA cannot use it).  Phase 3w's own card engines (the
 # single-process references) run after that, in the same interpreter.
 W_WORKERS = 4
-W_TICKS = 5  # lockstep ticks of (a) (8 before phases 3r and 4s, 6 before 9), then DRAIN_TICKS
-W_MIG_TICK = 3  # (b): redirect at this tick, serialize + install at the next
+W_TICKS = 4  # lockstep ticks of (a) (8 before 3r and 4s, 6 before 9, 5 before 10 and 11)
+W_MIG_TICK = 2  # (b): redirect at this tick, serialize + install at the next
 W_FAULT_BATCH, W_FAULT_TICKS = 1 << 14, 3  # (c): the planted map, at a cut depth
 W_STREAM_WORKERS = (2, 4)  # (f)
-W_STREAM_BATCHES = 4  # (8 before phases 3r and 4s, 6 before 9)
+W_STREAM_BATCHES = 3  # (8 before phases 3r and 4s, 6 before 9, 4 before 10 and 11)
 # tests/conformance.py:131-133, the +workers configuration's statistics
 # tolerance (per-worker partial sums of the usage windows).
 WORKERS_RTOL, WORKERS_ATOL = 1e-12, 1e-18
@@ -3091,30 +3177,63 @@ def lm_config(arch: str = LM_ARCH, context: int = LM_CONTEXT, *, smoke: bool = F
 
 
 def layer_counts(cfg) -> dict[str, int]:
-    """Layers of each kernel-bearing kind: attention (ATTN, ATTN_MOE,
-    LOCAL_ATTN), RG-LRU and MoE."""
+    """Layers of each kernel-bearing kind: decoder attention (ATTN,
+    ATTN_MOE, LOCAL_ATTN), encoder attention, cross attention (one per
+    decoder attention layer of an encoder-decoder model), RG-LRU and MoE."""
     from repro_torch.configs.base import ATTN, ATTN_MOE, LOCAL_ATTN, RGLRU
 
     kinds = list(cfg.pattern) * cfg.cycles + list(cfg.remainder)
-    return dict(attn=sum(k in (ATTN, ATTN_MOE, LOCAL_ATTN) for k in kinds),
+    attn = sum(k in (ATTN, ATTN_MOE, LOCAL_ATTN) for k in kinds)
+    return dict(attn=attn, enc=cfg.encoder_layers, cross=attn if cfg.is_encdec else 0,
                 rglru=kinds.count(RGLRU), moe=kinds.count(ATTN_MOE))
 
 
 def expected_launches(cfg, steps: int) -> dict[str, int]:
     """Launches of one prefill and ``steps`` decode steps: flash once per
-    attention layer and rglru_scan once per RG-LRU layer in the prefill;
-    decode attention once per attention layer and step; moe_gemm three
-    times (gate, up, down) per MoE layer in the prefill and in each step."""
+    attention layer (decoder, encoder and cross) and rglru_scan once per
+    RG-LRU layer in the prefill; decode attention once per decoder and
+    cross attention layer and step; moe_gemm three times (gate, up, down)
+    per MoE layer in the prefill and in each step."""
     n = layer_counts(cfg)
-    return {"flash_attention": n["attn"], "decode_attention": n["attn"] * steps,
+    return {"flash_attention": n["attn"] + n["enc"] + n["cross"],
+            "decode_attention": (n["attn"] + n["cross"]) * steps,
             "rglru_scan": n["rglru"], "moe_gemm": 3 * n["moe"] * (1 + steps)}
 
 
+@contextlib.contextmanager
+def timed_slstm(spans: list):
+    """While active, each sLSTM block of a sequence (S > 1) is timed with a
+    device synchronization on either side; its seconds go to ``spans``."""
+    import torch
+
+    import repro_torch.models.transformer as transformer
+
+    routed = transformer.slstm_block
+
+    def timed(cfg, p, x, **kw):
+        if x.shape[1] == 1:
+            return routed(cfg, p, x, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = routed(cfg, p, x, **kw)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    transformer.slstm_block = timed
+    try:
+        yield
+    finally:
+        transformer.slstm_block = routed
+
+
 def prefill_decode(dev, cfg, params, *, batch: int, prompt: int, steps: int,
-                   context: int) -> dict:
+                   context: int, encoder_embeds=None) -> dict:
     """Prefill ``batch`` prompts of numpy-seeded tokens through
-    ``Model.forward(build_cache=True)``, then decode ``steps`` tokens
-    greedily; returns timings and what the consistency check needs."""
+    ``Model.forward(build_cache=True)`` (over ``encoder_embeds`` for an
+    encoder-decoder model), then decode ``steps`` tokens greedily; returns
+    timings and what the consistency check needs.  The sLSTM blocks of the
+    prefill (xLSTM) are timed apart (``slstm_s``)."""
     import torch
 
     from repro_torch.models import Model
@@ -3123,9 +3242,11 @@ def prefill_decode(dev, cfg, params, *, batch: int, prompt: int, steps: int,
     tokens = torch.from_numpy(
         np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, prompt))
     ).to(dev)
+    slstm = []
     t0 = time.perf_counter()
-    logits, cache, _ = model.forward(params, tokens=tokens, build_cache=True,
-                                     cache_capacity=context)
+    with timed_slstm(slstm):
+        logits, cache, _ = model.forward(params, tokens=tokens, build_cache=True,
+                                         cache_capacity=context, encoder_embeds=encoder_embeds)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     check(tuple(logits.shape) == (batch, prompt, cfg.vocab_size), "prefill logits shape")
@@ -3146,12 +3267,19 @@ def prefill_decode(dev, cfg, params, *, batch: int, prompt: int, steps: int,
             first_logits = out[:, 0].float().clone()
     steady = sorted(step_s[1:]) or step_s
     ms_step = 1e3 * steady[len(steady) // 2]
+    enc = (f" over {tuple(encoder_embeds.shape[:2])} encoder frames"
+           if encoder_embeds is not None else "")
+    share = (f" (its {len(slstm)} sLSTM layers {sum(slstm):.3f} s, "
+             f"{sum(slstm) / t_prefill:.1%}, each timed between syncs)" if slstm else "")
     log(f"[lm] {cfg.name} L={cfg.num_layers} d={cfg.d_model} V={cfg.vocab_size}: prefill "
-        f"{batch}x{prompt} in {t_prefill:.3f} s = {batch * prompt / t_prefill:.0f} tokens/s; "
-        f"decode {ms_step:.3f} ms/step (median of {len(steady)}; first "
+        f"{batch}x{prompt}{enc} in {t_prefill:.3f} s = {batch * prompt / t_prefill:.0f} "
+        f"tokens/s{share}; decode {ms_step:.3f} ms/step (median of {len(steady)}; first "
         f"{1e3 * step_s[0]:.3f}) = {batch / (ms_step / 1e3):.1f} tokens/s")
     return dict(
         prefill_s=t_prefill,
+        slstm_s=sum(slstm),
+        slstm_share=sum(slstm) / t_prefill,
+        encoder_embeds=encoder_embeds,
         prefill_tokens_per_s=batch * prompt / t_prefill,
         decode_ms_per_step=ms_step,
         decode_tokens_per_s=batch / (ms_step / 1e3),
@@ -3238,15 +3366,25 @@ def check_kernels_in_prefill(cfg, params, run: dict) -> dict:
     from repro_torch.models import Model
 
     routed = transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm
+    routed_cross = transformer.cross_attention
     attn_errs, scan_errs, gemm_errs = [], [], []
     hold = _paired(attn_errs)
 
+    def plain(q, k, v, causal, window=None):
+        # One sequence at a time keeps the plain version's f32 scores small.
+        return torch.cat([attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal,
+                                        window=window) for i in range(q.shape[0])])
+
     def paired_attention(q, k, v, *, causal=True, window=None, **kw):
         out = routed[0](q, k, v, causal=causal, window=window, **kw)
-        # One sequence at a time keeps the plain version's f32 scores small.
-        ref = torch.cat([attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal,
-                                       window=window) for i in range(q.shape[0])])
-        hold("flash kernel against its plain version inside the prefill", out, ref, v)
+        hold("flash kernel against its plain version inside the prefill", out,
+             plain(q, k, v, causal, window), v)
+        return out
+
+    def paired_cross(q, k, v):
+        out = routed_cross(q, k, v)
+        hold("flash kernel (cross attention) against its plain version inside the prefill",
+             out, plain(q, k, v, False), v)
         return out
 
     def paired_scan(a, b, h0):
@@ -3259,19 +3397,22 @@ def check_kernels_in_prefill(cfg, params, run: dict) -> dict:
 
     transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm = (
         paired_attention, paired_scan, _paired_gemm(gemm_errs, routed[2], "prefill"))
+    transformer.cross_attention = paired_cross
     try:
-        logits, _, _ = Model(cfg).forward(params, tokens=run["tokens"])
+        logits, _, _ = Model(cfg).forward(params, tokens=run["tokens"],
+                                          encoder_embeds=run["encoder_embeds"])
     finally:
         transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm = routed
+        transformer.cross_attention = routed_cross
     del logits
     torch.cuda.synchronize()
     n = layer_counts(cfg)
-    worst, rel, vmax = _paired_summary(attn_errs, n["attn"], "prefill")
+    worst, rel, vmax = _paired_summary(attn_errs, n["attn"] + n["enc"] + n["cross"], "prefill")
     res = dict(prefill_layers_paired=len(attn_errs), prefill_paired_max_err=worst,
                prefill_paired_max_row_rel_err=rel, prefill_paired_max_abs_v=vmax)
     msg = (f"[lm] {cfg.name}: in a bf16 prefill {tuple(run['tokens'].shape)}, flash kernel vs "
-           f"plain version in each of {len(attn_errs)} attention layers: max err {worst} (max "
-           f"|v| {vmax}), max row error {rel:.3e}")
+           f"plain version in each of {len(attn_errs)} attention layers ({n['enc']} encoder, "
+           f"{n['cross']} cross): max err {worst} (max |v| {vmax}), max row error {rel:.3e}")
     check(len(scan_errs) == n["rglru"], f"paired rglru_scan {len(scan_errs)} times, not "
           f"{n['rglru']}")
     if scan_errs:
@@ -3298,7 +3439,7 @@ def check_kernels_in_decode(cfg, params, run: dict) -> dict:
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.models import Model
 
-    routed = transformer.decode_attention, moe_mod.moe_gemm
+    routed = transformer.decode_attention, moe_mod.moe_gemm, transformer.cross_attention
     errs, gemm_errs = [], []
     hold = _paired(errs)
 
@@ -3311,17 +3452,24 @@ def check_kernels_in_decode(cfg, params, run: dict) -> dict:
         hold("decode kernel against its plain version inside the decode step", out, ref, cv)
         return out
 
+    def paired_cross(q, ck, cv):
+        out = routed[2](q, ck, cv)
+        every = torch.full((q.shape[0],), ck.shape[1], dtype=torch.int32, device=q.device)
+        hold("decode kernel (cross attention) against its plain version inside the decode "
+             "step", out, decode_attention_ref(q, ck, cv, every), cv)
+        return out
+
     tok = run["last_tok"]
     pos = torch.full((tok.shape[0],), run["next_pos"], dtype=torch.int64, device=tok.device)
-    transformer.decode_attention, moe_mod.moe_gemm = (
-        paired, _paired_gemm(gemm_errs, routed[1], "decode step"))
+    transformer.decode_attention, moe_mod.moe_gemm, transformer.cross_attention = (
+        paired, _paired_gemm(gemm_errs, routed[1], "decode step"), paired_cross)
     try:
         Model(cfg).decode_step(params, run["cache"], tok[:, None], pos)
     finally:
-        transformer.decode_attention, moe_mod.moe_gemm = routed
+        transformer.decode_attention, moe_mod.moe_gemm, transformer.cross_attention = routed
     torch.cuda.synchronize()
     n = layer_counts(cfg)
-    worst, rel, vmax = _paired_summary(errs, n["attn"], "decode")
+    worst, rel, vmax = _paired_summary(errs, n["attn"] + n["cross"], "decode")
     res = dict(layers_paired=len(errs), paired_max_err=worst, paired_max_row_rel_err=rel,
                paired_max_abs_v=vmax)
     gemm_res, gemm_msg = _gemm_summary(gemm_errs, n["moe"], "decode_")
@@ -3371,11 +3519,13 @@ def check_prefill_decode(cfg, params, run: dict, *, context: int, cycles: int,
     from repro_torch.models.common import tree_map
 
     tokens, nxt = run["tokens"][:rows], run["first_tok"][:rows, None]
+    frames = None if run["encoder_embeds"] is None else run["encoder_embeds"][:rows]
     prompt = tokens.shape[1]
     pos = torch.full((rows,), prompt, dtype=torch.int64, device=tokens.device)
 
-    def last_row(model, p):
-        logits, _, _ = model.forward(p, tokens=torch.cat([tokens, nxt], dim=1))
+    def last_row(model, p, frames=frames):
+        logits, _, _ = model.forward(p, tokens=torch.cat([tokens, nxt], dim=1),
+                                     encoder_embeds=frames)
         out = logits[:, -1].float().clone()
         del logits
         return out
@@ -3390,21 +3540,30 @@ def check_prefill_decode(cfg, params, run: dict, *, context: int, cycles: int,
     # bf16 at full depth, for the record: the main path's first decode.
     b_diff, b_bad, _, b_agree = compare(run["first_logits"][:rows], last_row(Model(cfg), params))
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32", cycles=cycles, remainder=())
+    # An encoder-decoder model keeps as many encoder layers as decoder cycles.
+    enc_layers = min(cfg.encoder_layers, cycles)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", cycles=cycles, remainder=(),
+                                encoder_layers=enc_layers)
     # Cut to depth before the cast: Moonlight's 56 GB of bf16 would not fit twice.
     p32 = {k: v for k, v in params.items() if k not in ("blocks", "rem_blocks")}
     p32["blocks"] = tree_map(lambda a: a[:cycles], params["blocks"])
     p32["rem_blocks"] = []
+    if cfg.is_encdec:
+        p32["encoder"] = dict(params["encoder"],
+                              blocks=tree_map(lambda a: a[:enc_layers],
+                                              params["encoder"]["blocks"]))
     p32 = tree_map(lambda a: a.float(), p32)
+    frames32 = None if frames is None else frames.float()
     model = Model(cfg32)
-    logits, cache, _ = model.forward(p32, tokens=tokens, build_cache=True, cache_capacity=context)
+    logits, cache, _ = model.forward(p32, tokens=tokens, build_cache=True, cache_capacity=context,
+                                     encoder_embeds=frames32)
     del logits
     dec, _ = model.decode_step(p32, cache, nxt, pos)
     del cache
     got = dec[:, 0].float()
     dropped = [torch.zeros(rows, dtype=torch.int64, device=got.device)]
     with watch_last_token_drops(cfg32, dropped):
-        ref = last_row(model, p32)
+        ref = last_row(model, p32, frames32)
     del p32
     kept = sum(dropped) == 0  # rows whose last token no checked layer dropped
     check(bool(kept.any()), "the full forward dropped the last token from a full expert "
@@ -3423,7 +3582,8 @@ def check_prefill_decode(cfg, params, run: dict, *, context: int, cycles: int,
     n = res["rows_compared"]
     skipped = (f" (in {rows - n} the full forward's capacity dropped the last token)"
                if n < rows else "")
-    log(f"[lm] {cfg.name}: decode vs full forward, f32, {cfg32.num_layers} layers, {n} of "
+    enc = f" (+ {enc_layers} encoder layers)" if enc_layers else ""
+    log(f"[lm] {cfg.name}: decode vs full forward, f32, {cfg32.num_layers} layers{enc}, {n} of "
         f"{rows} rows{skipped}: max diff "
         f"{max_diff:.6f} (|logit| max {res['logit_absmax']:.4f}); argmax agrees on "
         f"{res['argmax_rows_agree']}/{n} rows, {res['argmax_rows_clear']} with a clear "
@@ -3492,13 +3652,15 @@ def profile_decode(cfg, params, run: dict, steps: int = 3) -> dict:
                   / 1e3 / steps for name, syms in KERNEL_SYMBOLS.items()}
     res = dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall if rows else None,
                busy_ms_per_step=busy * 1e3 / steps, wall_ms_per_step=wall * 1e3 / steps,
+               device_ops_per_step=sum(n for _, _, n in rows) / steps,
                kernel_ms_per_step={k: v for k, v in per_kernel.items() if v > 0},
                top=[(k, round(us / 1e3, 3), n) for us, k, n in rows[:10]])
     if rows:
         log(f"[profile] {cfg.name}, {steps} decode steps: wall {wall * 1e3:.3f} ms, device busy "
             f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f} %), {res['busy_ms_per_step']:.3f} ms "
-            f"busy per step; port kernels' device ms per step {res['kernel_ms_per_step']}; top "
-            f"kernels (ms, launches): {res['top']}")
+            f"busy per step; {res['device_ops_per_step']:.1f} device launches (kernels, copies, "
+            f"memsets) per step; port kernels' device ms per step {res['kernel_ms_per_step']}; "
+            f"top kernels (ms, launches): {res['top']}")
     else:
         log("[profile] torch.profiler recorded no device time: busy share not measured")
     return res
@@ -3518,9 +3680,12 @@ def run_serve(dev, cfg, params, settings: dict) -> dict:
 
     def leaves(cache):
         """(name, leaf, slot axis) of every cache leaf: axis 1 of the stacked
-        ``scan`` leaves, axis 0 of the remainder blocks' ``rem`` leaves, at
-        any rank (k/v rings and caches, RG-LRU ``h`` and ``conv``)."""
+        ``scan`` leaves and of an encoder-decoder's ``cross`` k/v, axis 0 of
+        the remainder blocks' ``rem`` leaves, at any rank (k/v rings and
+        caches, RG-LRU ``h`` and ``conv``, xLSTM ``C``, ``n``, ``m``, ``c``,
+        ``h``)."""
         return ([(n, a, 1) for e in cache["scan"] for n, a in e.items()]
+                + [(f"cross {n}", a, 1) for n, a in cache.get("cross", {}).items()]
                 + [(n, a, 0) for e in cache["rem"] for n, a in e.items()])
 
     def slot_sums(cache) -> torch.Tensor:
@@ -3532,7 +3697,14 @@ def run_serve(dev, cfg, params, settings: dict) -> dict:
                          for s in range(a.shape[axis])])
             for _, a, axis in leaves(cache)])
 
+    steps = []
+
     class CheckedWorker(DecodeWorker):
+        def decode_tick(self):
+            n, dt = super().decode_tick()
+            steps.append(n)
+            return n, dt
+
         def extract(self, slot):
             blob = super().extract(slot)
             blob["sums"] = slot_sums(self.cache)[:, slot].clone()
@@ -3573,6 +3745,7 @@ def run_serve(dev, cfg, params, settings: dict) -> dict:
         completed=stats.completed,
         migrations=stats.migrations,
         decode_tokens=stats.decode_tokens,
+        decode_steps=sum(n > 0 for n in steps),
         decode_seconds=stats.decode_seconds,
         decode_tokens_per_s=stats.decode_tokens / stats.decode_seconds,
         p50_ticks=stats.percentile(50),
@@ -3590,7 +3763,78 @@ def run_serve(dev, cfg, params, settings: dict) -> dict:
     return res
 
 
-#: The LM phases: GLM-4-9B (5-6), RecurrentGemma-2B (7), Moonlight (8).
+def check_chunk_boundary(cfg, params, run: dict) -> dict:
+    """xLSTM across the mLSTM's chunk boundary on the first pattern cycle (7
+    mLSTM + 1 sLSTM layers) of the same weights and the first XL_ROWS
+    prompts: a 256-token prefill, then teacher-forced decode steps through
+    position 511, every position's logits against the port's own 512-token
+    (two-chunk) forward.  Gated in float64 at XL_TOL; a planted fault, the
+    carried state read as Cᵀq (the reference's contraction,
+    ``src/repro/models/xlstm.py:150-152``), must fail it.  The same in
+    float32 is measured beside the f32 forward's distance from the f64 one
+    (the model's own conditioning), not gated."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.models.xlstm as xlstm
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_map
+
+    first = {k: v for k, v in params.items() if k != "blocks"}
+    first["blocks"] = tree_map(lambda a: a[:1], params["blocks"])
+    toks = run["tokens"][:XL_ROWS]
+    toks = torch.cat([toks, toks], dim=1)[:, :XL_TOTAL]  # 512 tokens: the prompt, repeated
+
+    def both(dtype: str, readout=None):
+        """(two-chunk forward, decode) logits at positions 256-511."""
+        cfg_d = dataclasses.replace(cfg, dtype=dtype, cycles=1, remainder=())
+        p = tree_map(lambda a: a.to(getattr(torch, dtype)), first)
+        model = Model(cfg_d)
+        saved = xlstm.carry_readout
+        xlstm.carry_readout = readout or saved
+        try:
+            full = model.forward(p, tokens=toks)[0][:, XL_PREFIX:]
+        finally:
+            xlstm.carry_readout = saved
+        if readout is not None:
+            return full, None
+        _, cache, _ = model.forward(p, tokens=toks[:, :XL_PREFIX], build_cache=True)
+        steps = []
+        for pos in range(XL_PREFIX, XL_TOTAL):
+            out, cache = model.decode_step(p, cache, toks[:, pos : pos + 1],
+                                           torch.full((XL_ROWS,), pos, device=toks.device))
+            steps.append(out[:, 0])
+        return full, torch.stack(steps, dim=1)
+
+    full64, dec64 = both("float64")
+    diff, bad = max_err(full64, dec64, XL_TOL)
+    check(bad == 0, f"{cfg.name}: f64 decode past the first mLSTM chunk disagrees with the "
+          f"two-chunk forward: {bad} of {dec64.numel()} outside {XL_TOL} (max diff {diff})")
+    fault, fault_bad = max_err(both("float64", lambda q, c: q @ c)[0], dec64, XL_TOL)  # Cᵀq
+    check(fault_bad > 0, f"{cfg.name}: the chunk-boundary check passes a planted fault (the "
+          f"carry read as Cᵀq): max diff {fault}")
+    full32, dec32 = both("float32")
+    res = dict(boundary_max_diff_f64=diff, boundary_logit_absmax=float(full64.abs().max()),
+               boundary_positions=XL_TOTAL - XL_PREFIX, boundary_planted_fault_max_diff=fault,
+               boundary_planted_fault_outside=fault_bad,
+               boundary_f32_forward_vs_decode=float((full32 - dec32).abs().max()),
+               boundary_f32_vs_f64_forward=float((full32 - full64).abs().max()),
+               boundary_f32_vs_f64_decode=float((dec32 - dec64).abs().max()))
+    log(f"[lm] {cfg.name}: across the mLSTM chunk boundary, {len(cfg.pattern)} layers, "
+        f"{XL_ROWS} rows, decode "
+        f"from a {XL_PREFIX}-token prefill vs the {XL_TOTAL}-token forward at positions "
+        f"{XL_PREFIX}-{XL_TOTAL - 1}: f64 max diff {diff:.3e} (|logit| max "
+        f"{res['boundary_logit_absmax']:.4f}, limit {XL_TOL}); planted fault (carry read as "
+        f"Cᵀq): max diff {fault:.4f}, {fault_bad} outside.  f32, not gated: forward vs decode "
+        f"{res['boundary_f32_forward_vs_decode']:.4f}, forward vs the f64 forward "
+        f"{res['boundary_f32_vs_f64_forward']:.4f}, decode vs the f64 decode "
+        f"{res['boundary_f32_vs_f64_decode']:.4f}")
+    return res
+
+
+#: The LM phases: GLM-4-9B (5-6), RecurrentGemma-2B (7), Moonlight (8),
+#: xLSTM-1.3B (10) and Whisper-small (11).
 LM_RUNS = (
     dict(arch=LM_ARCH, context=LM_CONTEXT, batch=LM_BATCH, prompt=LM_PROMPT,
          steps=LM_DECODE_STEPS, check_cycles=CHECK_CYCLES, serve_context=LM_CONTEXT,
@@ -3604,54 +3848,87 @@ LM_RUNS = (
     dict(arch=MOE_ARCH, context=MOE_CONTEXT, batch=MOE_BATCH, prompt=MOE_PROMPT,
          steps=MOE_DECODE_STEPS, check_cycles=CHECK_CYCLES, check_rows=MOE_BATCH,
          serve_context=MOE_SERVE_CONTEXT, serve=SERVE),
+    # No kernel on its path: check_chunk_boundary takes the place of the
+    # kernel pairings and of check_prefill_decode.
+    dict(arch=XL_ARCH, context=XL_CONTEXT, batch=XL_BATCH, prompt=XL_PROMPT,
+         steps=XL_DECODE_STEPS, serve_context=XL_CONTEXT, serve=SERVE),
+    # The serve loop decodes against an empty encoder, as the reference's.
+    dict(arch=WH_ARCH, context=WH_CONTEXT, batch=WH_BATCH, prompt=WH_PROMPT,
+         steps=WH_DECODE_STEPS, frames=WH_FRAMES, check_cycles=CHECK_CYCLES,
+         serve_context=WH_CONTEXT, serve=SERVE),
 )
 
 
 def run_lm(dev, drive, spec: dict) -> tuple[dict, dict]:
     """One model at full width on the card: random bf16 weights from a
-    seeded generator, then prefill + greedy decode with exact launch counts
-    (the path the JSON line's launches come from), the per-layer kernel
-    pairings, a decode profile, the f32 prefill/decode consistency check,
-    and the serve loop (launches counted too).  Frees the weights after."""
+    seeded generator (and, for an encoder-decoder model, seeded frame
+    embeddings), then prefill + greedy decode with exact launch counts (the
+    path the JSON line's launches come from), the per-layer kernel
+    pairings, a decode profile, the f32 prefill/decode consistency check
+    (xLSTM: across the mLSTM chunk boundary), and the serve loop (launches
+    counted too).  Frees the weights after."""
     import torch
 
     from repro_torch.models import init_params
+    from repro_torch.models.common import tree_leaves
 
     cfg = lm_config(spec["arch"], spec["context"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, SEED, device=dev)
+    frames = None
+    if cfg.is_encdec:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+        frames = torch.randn((spec["batch"], spec["frames"], cfg.d_model), generator=gen,
+                             device=dev).to(torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"[lm] {cfg.name}: L={cfg.num_layers} d={cfg.d_model} V={cfg.vocab_size}, parameters "
-        f"initialized on the card in {time.perf_counter() - t0:.2f} s "
+    log(f"[lm] {cfg.name}: L={cfg.num_layers} d={cfg.d_model} V={cfg.vocab_size}, "
+        f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B parameters initialized on "
+        f"the card in {time.perf_counter() - t0:.2f} s "
         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB)")
     want = expected_launches(cfg, spec["steps"])
     run, counts = drive(tuple(k for k, n in want.items() if n), prefill_decode, dev, cfg,
                         params, batch=spec["batch"], prompt=spec["prompt"],
-                        steps=spec["steps"], context=spec["context"])
+                        steps=spec["steps"], context=spec["context"], encoder_embeds=frames)
     for name, n in want.items():
         check(counts[name] == n, f"{cfg.name}: prefill + {spec['steps']} decode steps launched "
               f"{name} {counts[name]} times, not {n}")
     log(f"[lm] {cfg.name}: launches of one prefill and {spec['steps']} decode steps {want}")
     lm = {k: v for k, v in run.items()
-          if k != "next_pos" and not isinstance(v, (torch.Tensor, dict))}
+          if k not in ("next_pos", "encoder_embeds") and not isinstance(v, (torch.Tensor, dict))}
     lm["launches"] = want
-    lm.update(check_kernels_in_decode(cfg, params, run))
+    kernels = any(want.values())
+    if kernels:
+        lm.update(check_kernels_in_decode(cfg, params, run))
     lm["profile"] = profile_decode(cfg, params, run)
     del run["cache"]
-    lm.update(check_kernels_in_prefill(cfg, params, run))
-    lm.update(check_prefill_decode(cfg, params, run, context=spec["context"],
-                                   cycles=spec["check_cycles"], rows=spec.get("check_rows", 2)))
+    if kernels:
+        lm.update(check_kernels_in_prefill(cfg, params, run))
+        lm.update(check_prefill_decode(cfg, params, run, context=spec["context"],
+                                       cycles=spec["check_cycles"],
+                                       rows=spec.get("check_rows", 2)))
+    else:
+        lm.update(check_chunk_boundary(cfg, params, run))
     del run
     lm["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"[lm] {cfg.name}: peak device memory {lm['peak_mem_gb']:.2f} GB of "
         f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f} GB")
-    decode = ("decode_attention",) + (("moe_gemm",) if cfg.moe is not None else ())
+    decode = ((("decode_attention",) if want["decode_attention"] else ())
+              + (("moe_gemm",) if cfg.moe is not None else ()))
     served, serve_counts = drive(decode, run_serve, dev,
                                  lm_config(spec["arch"], spec["serve_context"]), params,
                                  spec["serve"])
     check(serve_counts["flash_attention"] == 0 and serve_counts["rglru_scan"] == 0,
           "the serve loop launched a prefill kernel")
+    if cfg.is_encdec:
+        # Against an empty encoder (the reference's DecodeWorker): the
+        # cross sublayers launch nothing, so one decode launch per self
+        # attention layer and decode step.
+        per_step = serve_counts["decode_attention"] / max(served["decode_steps"], 1)
+        check(per_step == layer_counts(cfg)["attn"], f"{cfg.name}: the serve loop launched "
+              f"{per_step} decode kernels a step, not one per self attention layer")
+    check(all(serve_counts[k] == 0 for k in serve_counts if k not in decode),
+          f"{cfg.name}: the serve loop launched a kernel off its path: {serve_counts}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3667,10 +3944,14 @@ GRAD_CYCLES = 2  # (a): the first pattern cycles of each model, in float32
 # this relative norm error of the gradient through the plain versions.
 GRAD_RTOL = 1e-3
 # (a)'s three models: two at full width, and the trainer's own MoE config.
-GRAD_ARCHS = ("llama3_2_3b", "recurrentgemma_2b", "moonshot_v1_16b_a3b")
+GRAD_ARCHS = ("llama3_2_3b", "recurrentgemma_2b", "moonshot_v1_16b_a3b", "whisper_small")
+# (a)'s Whisper-small: full width and depth (12 + 12 layers), 8 clips of
+# 1,500 frames and 8 x 448 tokens (its decoder's context).
+GRAD_WHISPER = (8, WH_CONTEXT, WH_FRAMES)  # batch, tokens, frames
 TRAIN_MOE = ("moonshot_v1_16b_a3b", 512, 4, 32768)  # reduced_config(arch, d, layers, vocab)
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_PROFILED = "llama3_2_3b", 4, 2  # (b)
 RG_TRAIN_STEPS, MOE_TRAIN_STEPS = 2, 2  # (d)
+XL_TRAIN_STEPS, XL_TRAIN_BATCH, WH_TRAIN_STEPS = 2, 8, 2  # (e): remat "full" (the configs')
 # (c): examples/train_lm.py's arguments, cut to 30 steps with a failure.
 ENTRY_ARGS = ["--arch", "llama3_2_3b", "--d-model", "640", "--layers", "10", "--vocab", "32768",
               "--batch", "16", "--seq-len", "256", "--num-shards", "16", "--num-workers", "4",
@@ -3680,16 +3961,27 @@ ENTRY_RESTORE_STEPS = 40  # the --restore run: one more period
 LM_KERNELS = ("flash_attention", "rglru_scan", "moe_gemm")
 
 
-def train_batch(cfg, dev, step: int = 0) -> dict:
-    """``TokenPipeline``'s batch ``step`` (16 x 256, the example's) on the card."""
+def train_batch(cfg, dev, step: int = 0, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                frames: int = 0) -> dict:
+    """``TokenPipeline``'s batch ``step`` (by default 16 x 256, the
+    example's) on the card; with ``frames``, seeded frame embeddings
+    ``(batch, frames, d_model)`` in the model's dtype beside it (the
+    pipeline has none: an encoder-decoder model's trainer input)."""
     import torch
 
+    from repro_torch.configs.base import torch_dtype
     from repro_torch.data import PipelineConfig, TokenPipeline
 
-    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                                        global_batch=TRAIN_BATCH, num_shards=TRAIN_SHARDS,
+    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                        global_batch=batch,
+                                        num_shards=math.gcd(batch, TRAIN_SHARDS),
                                         seed=SEED), start_step=step)
-    return {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+    out = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+    if frames:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30 + step)
+        out["encoder_embeds"] = torch.randn((batch, frames, cfg.d_model), generator=gen,
+                                            device=dev).to(torch_dtype(cfg.dtype))
+    return out
 
 
 def leaf_names(tree, prefix: str = "") -> list[str]:
@@ -3702,21 +3994,25 @@ def leaf_names(tree, prefix: str = "") -> list[str]:
 
 
 @contextlib.contextmanager
-def routed(attention=None, scan=None, gemm=None):
+def routed(attention=None, scan=None, gemm=None, cross=None):
     """The model's kernel entry points swapped while active (None keeps one):
-    ``transformer.attention``, ``rglru.scan_kernel``, ``moe.moe_gemm``."""
+    ``transformer.attention``, ``rglru.scan_kernel``, ``moe.moe_gemm``,
+    ``transformer.cross_attention``."""
     import repro_torch.models.moe as moe_mod
     import repro_torch.models.rglru as rglru_mod
     import repro_torch.models.transformer as transformer
 
-    saved = transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm
+    saved = (transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm,
+             transformer.cross_attention)
     transformer.attention = attention or saved[0]
     rglru_mod.scan_kernel = scan or saved[1]
     moe_mod.moe_gemm = gemm or saved[2]
+    transformer.cross_attention = cross or saved[3]
     try:
         yield
     finally:
-        transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm = saved
+        (transformer.attention, rglru_mod.scan_kernel, moe_mod.moe_gemm,
+         transformer.cross_attention) = saved
 
 
 def plain_versions() -> dict:
@@ -3728,7 +4024,10 @@ def plain_versions() -> dict:
     def attention(q, k, v, *, causal=True, window=None, **_):
         return attention_ref(q, k, v, causal=causal, window=window)
 
-    return dict(attention=attention, scan=rglru_scan_ref, gemm=moe_gemm_ref)
+    def cross(q, k, v):
+        return attention_ref(q, k, v, causal=False)
+
+    return dict(attention=attention, scan=rglru_scan_ref, gemm=moe_gemm_ref, cross=cross)
 
 
 class TopkTape:
@@ -3806,7 +4105,8 @@ def grad_errors(got: list, ref: list) -> list[float]:
 
 def grad_config(dev, arch: str):
     """(a)'s float32 config and parameters: two cycles of ``arch`` at full
-    width (no remainder blocks), or the trainer's reduced MoE config."""
+    width (no remainder blocks), Whisper-small whole, or the trainer's
+    reduced MoE config."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3815,6 +4115,8 @@ def grad_config(dev, arch: str):
 
     if arch == TRAIN_MOE[0]:
         cfg = reduced_config(*TRAIN_MOE)
+    elif arch == WH_ARCH:
+        cfg = get_config(arch)  # full depth
     else:
         cfg = dataclasses.replace(get_config(arch), cycles=GRAD_CYCLES, remainder=())
     # No remat: a recompute would route the MoE layers again (see TopkTape);
@@ -3990,6 +4292,21 @@ def nudged(attention, dev):
     return run
 
 
+def tied(plain, kernel):
+    """``plain`` with its output values replaced by ``kernel``'s on the same
+    inputs (computed without autograd) and its gradient kept: the forward
+    of a kernel, the backward of the plain version."""
+    import torch
+
+    def run(q, k, v, **kw):
+        ref = plain(q, k, v, **kw)
+        with torch.no_grad():
+            out = kernel(q, k, v, **kw)
+        return ref + (out - ref).detach()
+
+    return run
+
+
 def model_grad_checks(dev) -> dict:
     """(a): per parameter leaf, the gradient of ``Model.loss`` on one
     TokenPipeline batch through the kernels' Functions against the same
@@ -4000,7 +4317,11 @@ def model_grad_checks(dev) -> dict:
     its Function: no gradient to wq/wk/wv; moe's dw of a live expert
     zeroed).  The scan's dh0 fault is rejected by ``function_checks``: the
     model's scans start from a constant 0.  The plain and faulty runs
-    replay the Function run's expert choices (``TopkTape``)."""
+    replay the Function run's expert choices (``TopkTape``).  Whisper-small
+    runs whole (12 + 12 layers, 8 clips of 1,500 frames, 8 x 448 tokens);
+    it is chaotic at that depth, so its plain runs take the kernel's
+    forward values (``tied``) and its all-plain error is held to the
+    model's own sensitivity, as the MoE model's is."""
     import importlib
 
     import torch
@@ -4020,14 +4341,21 @@ def model_grad_checks(dev) -> dict:
     def no_function(q, k, v, *, causal=True, window=None, **_):
         return fa._run(q, k, v, causal, window)
 
+    no_function_anywhere = dict(attention=no_function,
+                                cross=lambda q, k, v: fa._run(q, k, v, False, None))
     faults = {"llama3_2_3b": ("flash wrapper without its Function", dict(attention=no_function)),
               "moonshot_v1_16b_a3b": ("moe dw of a live expert zeroed",
-                                      dict(gemm=lambda x, w: ZeroLiveDw.apply(x, w)))}
+                                      dict(gemm=lambda x, w: ZeroLiveDw.apply(x, w))),
+              "whisper_small": ("flash wrapper without its Function", no_function_anywhere)}
     plain = plain_versions()
     res = {}
     for arch in GRAD_ARCHS:
         cfg, params = grad_config(dev, arch)
-        batch = train_batch(cfg, dev)
+        if cfg.is_encdec:
+            b, seq, frames = GRAD_WHISPER
+            batch = train_batch(cfg, dev, batch=b, seq=seq, frames=frames)
+        else:
+            batch = train_batch(cfg, dev)
         names = leaf_names(params)
         tape = TopkTape()
         reset_launch_counts()
@@ -4057,6 +4385,28 @@ def model_grad_checks(dev) -> dict:
                   f"model's own {sensitivity:.3e} under a {NUDGE_RTOL} nudge of attention")
             del all_plain
             swap = dict(gemm=plain["gemm"])
+        elif cfg.is_encdec:
+            # Whisper at full depth (12 + 12 layers) in f32 is chaotic at the
+            # reference's init: the flash kernel's rounding of the forward
+            # moves the gradients by O(1) (measured: the all-plain error
+            # against the 1e-6 nudge's effect, both printed).  So the all-plain
+            # error is held to NUDGE_FACTOR times the nudge's, and GRAD_RTOL
+            # holds the Function's backward with the forward's values fixed:
+            # the plain runs take the kernel's output values (a straight-
+            # through tie), so only the backward differs between the runs.
+            with routed(**plain):
+                all_plain = loss_and_grads(cfg, params, batch)[1]
+            with routed(**dict(plain, attention=nudged(plain["attention"], dev),
+                               cross=nudged(plain["cross"], dev))):
+                sensitivity = max(grad_errors(loss_and_grads(cfg, params, batch)[1],
+                                              all_plain))
+            out_all = max(grad_errors(got, all_plain))
+            check(out_all <= NUDGE_FACTOR * sensitivity, f"{cfg.name}: gradients through flash "
+                  f"{out_all:.3e} off the plain versions', over {NUDGE_FACTOR} x the model's own "
+                  f"{sensitivity:.3e} under a {NUDGE_RTOL} nudge of attention")
+            del all_plain
+            swap = dict(attention=tied(plain["attention"], no_function),
+                        cross=tied(plain["cross"], no_function_anywhere["cross"]))
         with routed(**swap), fixed_routing(tape, record=False):
             ref_loss, ref = loss_and_grads(cfg, params, batch)
         check(launch_counts()["moe_gemm"] == counts["moe_gemm"] or cfg.moe is None,
@@ -4069,7 +4419,7 @@ def model_grad_checks(dev) -> dict:
                    plain=sorted(k for k in swap), worst_leaf=names[worst],
                    worst_rel_err=errs[worst], launches={k: counts[k] for k in LM_KERNELS},
                    backward_launches={k: back[k] for k in LM_KERNELS})
-        if cfg.moe is not None:
+        if cfg.moe is not None or cfg.is_encdec:
             out.update(all_plain_worst_rel_err=out_all, nudge_sensitivity=sensitivity)
         if arch in faults:
             what, swap = faults[arch]
@@ -4085,7 +4435,8 @@ def model_grad_checks(dev) -> dict:
             f"relative norm error {errs[worst]:.3e}"
             + (f" (every kernel plain: {out_all:.3e}, against {sensitivity:.3e} from a "
                f"{NUDGE_RTOL} relative nudge of the plain attention's output)"
-               if cfg.moe is not None else "")
+               if cfg.moe is not None or cfg.is_encdec else "")
+            + (" (plain runs tied to the kernel's forward values)" if cfg.is_encdec else "")
             + f"; launches {out['launches']} (backward {out['backward_launches']})"
             + (f"; planted fault ({out['planted_fault']['what']}) rejected: "
                f"{out['planted_fault']['worst_leaf']} at {out['planted_fault']['rel_err']:.3e}"
@@ -4097,10 +4448,13 @@ def model_grad_checks(dev) -> dict:
     return res
 
 
-def train_steps(dev, cfg, steps: int, profiled: int = 0, every_leaf: bool = False) -> dict:
+def train_steps(dev, cfg, steps: int, profiled: int = 0, every_leaf: bool = False,
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ, frames: int = 0) -> dict:
     """``steps`` make_train_step steps of ``cfg`` (seeded random weights on
     the card, AdamW with cosine_schedule(3e-4, 20, steps), TokenPipeline
-    batches of 16 x 256), then ``profiled`` more under torch.profiler.  Loss
+    batches of ``batch`` x ``seq``, by default 16 x 256, and ``frames``
+    encoder frames a row for an encoder-decoder model), then ``profiled``
+    more under torch.profiler.  Loss
     and grad norm finite, and with ``every_leaf`` every leaf changed (else
     the unchanged leaves are listed: in 2 warm-up steps at lr ≤ 4.5e-5 a
     bf16 leaf whose gradients are near AdamW's eps moves less than its
@@ -4142,7 +4496,7 @@ def train_steps(dev, cfg, steps: int, profiled: int = 0, every_leaf: bool = Fals
         learning_rate=cosine_schedule(3e-4, 20, steps))
     opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt)
-    batches = [train_batch(cfg, dev, i) for i in range(steps + profiled)]
+    batches = [train_batch(cfg, dev, i, batch, seq, frames) for i in range(steps + profiled)]
     start_counts, start_back = launch_counts(), backward_launch_counts()
     secs, losses, norms = [], [], []
     for i in range(steps):
@@ -4173,7 +4527,7 @@ def train_steps(dev, cfg, steps: int, profiled: int = 0, every_leaf: bool = Fals
     res = dict(layers=cfg.num_layers, params=n_params, steps=steps, first_step_s=secs[0],
                unchanged_by_rounding=[n for n, _ in same],
                ms_per_step=ms, step_ms=[1e3 * s for s in secs],
-               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+               tokens_per_s=batch * seq / (ms / 1e3),
                optimizer_ms=float(np.median(opt_ms)) if opt_ms else None, losses=losses,
                grad_norms=norms, launches_per_step={k: counts[k] - back[k] for k in LM_KERNELS},
                backward_launches_per_step=back)
@@ -4197,7 +4551,8 @@ def train_steps(dev, cfg, steps: int, profiled: int = 0, every_leaf: bool = Fals
             ("; torch.profiler recorded no device time: busy share not measured"
              if profiled else ""))
     log(f"[train] {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params, "
-        f"{steps} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, remat {cfg.remat}: first "
+        f"{steps} steps of {batch}x{seq}{f' over {frames} frames' if frames else ''}, remat "
+        f"{cfg.remat}: first "
         f"{secs[0]:.2f} s, then {ms:.1f} ms/step = {res['tokens_per_s']:.0f} tokens/s{busy}; "
         f"AdamW.apply {res['optimizer_ms']} ms of a step (CUDA events); "
         f"peak memory {res['peak_mem_gb']:.2f} GB; losses {[round(x, 4) for x in losses]}; "
@@ -4267,6 +4622,12 @@ def run_training(dev) -> dict:
     res["entry_point"] = run_entry_point(dev)
     res["recurrentgemma_full_width"] = train_steps(dev, get_config(RG_ARCH), RG_TRAIN_STEPS)
     res["moe_reduced"] = train_steps(dev, reduced_config(*TRAIN_MOE), MOE_TRAIN_STEPS)
+    # Phase 9's share of phases 10 and 11: xLSTM-1.3B over two mLSTM chunks,
+    # Whisper-small over 16 clips of 1,500 frames and 448-token targets.
+    res["xlstm_full"] = train_steps(dev, get_config(XL_ARCH), XL_TRAIN_STEPS, every_leaf=True,
+                                    batch=XL_TRAIN_BATCH, seq=2 * XL_PREFIX)
+    res["whisper_full"] = train_steps(dev, get_config(WH_ARCH), WH_TRAIN_STEPS, every_leaf=True,
+                                      batch=WH_BATCH, seq=WH_CONTEXT, frames=WH_FRAMES)
     return res
 
 
@@ -4431,6 +4792,9 @@ def main() -> int:
         flash_cases.append(flash_timed_case(
             dev, "RecurrentGemma prefill, hd 256", RG_BATCH, RG_PROMPT, 10, 1, 256, 2048,
             SEED + 1, fault=True))
+        flash_cases += [flash_timed_case(dev, what, WH_BATCH, s_len, 12, 12, 64, None,
+                                         SEED + 4 + i, fault=True, t=t_len, causal=causal)
+                        for i, (what, s_len, t_len, causal) in enumerate(WHISPER_FLASH)]
         kernels.update(scan_and_expert_kernel_checks(dev))
         gc.collect()
         torch.cuda.empty_cache()

@@ -25,7 +25,9 @@ LOCAL_ATTN = "local_attn"  # windowed attention + MLP
 MLSTM = "mlstm"  # xLSTM matrix-memory block
 SLSTM = "slstm"  # xLSTM scalar-memory block
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+#: float64 is for checks that need rounding out of the way (chip_smoke.py's
+#: xLSTM chunk-boundary check); the configs themselves are bf16.
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -19,12 +19,20 @@ serves the reduced (SMOKE) config as the reference's ``main()`` does.
 
 A migration moves the sequence's own rows: along the **batch** axis, which
 is axis 1 of the stacked ``scan`` cache leaves ``(cycles, batch, cap, KV,
-hd)`` and axis 0 of the ``rem`` leaves, whatever their rank (a LOCAL_ATTN
-ring, an RG-LRU block's ``h`` and ``conv``).  (The reference's ``extract`` /
-``install`` slice axis 0 of the stacked leaves, the layer axis; the port
-does what the reference's docstring says instead.)
+hd)`` (an xLSTM block's ``C``, ``n``, ``m`` and ``c``, ``n``, ``h``, ``m``
+too) and of an encoder-decoder's ``cross`` leaves, and axis 0 of the
+``rem`` leaves, whatever their rank (a LOCAL_ATTN ring, an RG-LRU block's
+``h`` and ``conv``).  (The reference's ``extract`` / ``install`` slice
+axis 0 of the stacked leaves, the layer axis; the port does what the
+reference's docstring says instead.)
 
-Usage (any ported arch: glm4_9b, recurrentgemma_2b, moonshot_v1_16b_a3b, ...):
+A worker's cache is ``init_cache(cfg, slots, cfg.max_seq_len)``, as the
+reference builds it: an encoder-decoder model (Whisper) is served against
+an empty encoder (``enc_len`` 0), so its cross sublayers add exactly 0 and
+launch nothing (ROADMAP queue 3 item 2).
+
+Usage (any arch: glm4_9b, recurrentgemma_2b, moonshot_v1_16b_a3b,
+xlstm_1_3b, whisper_small, ...):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b --device cpu
 """
 
@@ -56,15 +64,19 @@ class Sequence:
 
 def slot_rows(cache: dict, slot: int) -> dict:
     """A copy of one slot's rows of every cache leaf (batch axis)."""
-    return {
+    rows = {
         "scan": [{n: a[:, slot : slot + 1].clone() for n, a in e.items()} for e in cache["scan"]],
         "rem": [{n: a[slot : slot + 1].clone() for n, a in e.items()} for e in cache["rem"]],
     }
+    if "cross" in cache:
+        rows["cross"] = {n: a[:, slot : slot + 1].clone() for n, a in cache["cross"].items()}
+    return rows
 
 
 def put_slot_rows(cache: dict, slot: int, rows: dict) -> None:
     """Write ``rows`` (from :func:`slot_rows`) into one slot, in place."""
-    for e, r in zip(cache["scan"], rows["scan"]):
+    for e, r in zip(cache["scan"] + [cache.get("cross", {})],
+                    rows["scan"] + [rows.get("cross", {})]):
         for n, a in e.items():
             a[:, slot : slot + 1].copy_(r[n])
     for e, r in zip(cache["rem"], rows["rem"]):

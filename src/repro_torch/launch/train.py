@@ -20,6 +20,11 @@ paper's controller manages the *data plane*:
 
 The CLI, the controller, the printed lines and the checkpoints are the
 reference's; ``--device`` (default ``cuda``; no fallback) is the port's.
+Every family trains but the encoder-decoder one (``--arch whisper_small``):
+the token pipeline yields no ``encoder_embeds``, so its first step raises,
+where the reference's fails.  An xLSTM run's ``--seq-len`` must be a whole
+number of 256-token mLSTM chunks once it is longer than one (the default
+256 is one chunk).
 On the card the attention, RG-LRU and expert products run the hand-written
 kernels forward and backward (their autograd Functions).  :func:`main`
 returns what it did (the start step, each period's line and assignment,
@@ -178,6 +183,12 @@ def main(argv=None) -> dict:
     for step in range(start, args.steps):
         batch_np = pipe.next_batch()
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        if cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder model and the token pipeline yields no "
+                "encoder_embeds (tokens and labels only); the reference's trainer fails at "
+                "this step too (its forward asserts them)"
+            )
 
         # Real compute, measured per shard (shards are batch slices).
         t0 = time.perf_counter()

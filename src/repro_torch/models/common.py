@@ -118,17 +118,23 @@ def init_from_specs(
 # ---------------------------------------------------------------------------
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, as the reference's ``astype(jnp.float32)``; a
+    float64 input keeps float64 (for checks that run a model in float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = at_least_f32(x)
     var = xf.square().mean(-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
-    return (normed * (1.0 + scale.float())).to(x.dtype)
+    return (normed * (1.0 + at_least_f32(scale))).to(x.dtype)
 
 
 def layer_norm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
-    xf = x.float()
+    xf = at_least_f32(x)
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)

@@ -8,7 +8,14 @@ batch (sequence slot) is axis 1, not axis 0.  A LOCAL_ATTN leaf is a ring of
 ``min(local_window, capacity)`` slots (token t in slot t % w, written by
 :func:`update_kv`'s ``positions % cap``); an RGLRU block keeps its state
 ``h`` ``(batch, W)`` in float32 and its conv buffer ``conv`` ``(batch, 3,
-W)`` of raw inputs, oldest first, updated in place by the block.
+W)`` of raw inputs, oldest first, updated in place by the block.  An MLSTM
+block keeps ``C`` ``(batch, H, hd, hd)``, ``n`` ``(batch, H, hd)`` and
+``m`` ``(batch, H)`` in float32; an SLSTM block ``c``, ``n``, ``m``
+``(batch, d)`` in float32 and ``h`` in the activation dtype (bf16 here, as
+the reference hard-wires); both update them in place in decode.  An
+encoder-decoder model's ``cross`` leaves are ``(cycles, batch, enc_len,
+KV, hd)``: the same shapes a prefill with ``enc_len`` encoder frames
+builds (``Model.forward(build_cache=True, encoder_embeds=...)``).
 
 ``init_cache`` materializes zeros for serving; the sharded ShapeDtypeStruct
 form and the logical axes wait for the mesh tooling (ROADMAP queue 1,

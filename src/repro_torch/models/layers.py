@@ -1,16 +1,17 @@
-"""Attention (GQA full / chunked-flash / decode) and MLP (SwiGLU / GeGLU /
-GELU) layers, functional style.
+"""Attention (GQA full / chunked-flash / decode / cross) and MLP (SwiGLU /
+GeGLU / GELU) layers, functional style.
 
 GQA is computed with an explicit group dimension so repeated KV heads are
 never materialized:  q (B,S,KV,G,hd) × k (B,T,KV,hd) → scores (B,KV,G,S,T).
 
 On a CUDA tensor, :func:`attention` runs the hand-written flash kernel
-(:mod:`repro_torch.kernels.flash_attention`) at every length and
+(:mod:`repro_torch.kernels.flash_attention`) at every length,
 :func:`decode_attention` the decode kernel
-(:mod:`repro_torch.kernels.decode_attention`), at exactly the call sites
-where the reference calls their XLA counterparts.  On a CPU tensor both keep
-the reference's own math (full or chunked attention), so the CPU tests
-compare like with like.
+(:mod:`repro_torch.kernels.decode_attention`), and :func:`cross_attention`
+(an encoder-decoder's cross sublayer) the one or the other by query
+length, at exactly the call sites where the reference calls their XLA
+counterparts.  On a CPU tensor all three keep the reference's own math
+(full or chunked attention), so the CPU tests compare like with like.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from repro_torch.models.common import (
     ParamSpec,
     apply_mrope,
     apply_rope,
+    at_least_f32,
     norm_specs,
     text_mrope_positions,
 )
@@ -133,7 +135,7 @@ def full_attention(
     t, kvh = k.shape[1], k.shape[2]
     dev = q.device
     qg = _grouped(q, kvh)  # (B,S,KV,G,hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
+    scores = at_least_f32(torch.einsum("bskgh,btkh->bkgst", qg, k))
     scores = scores / torch.tensor(math.sqrt(hd), dtype=torch.float32)
     # Positions: q_offset may be scalar or per-batch (B,) (windowed decode).
     offset = torch.as_tensor(q_offset, device=dev)
@@ -226,6 +228,28 @@ def attention(
     if s <= max_full_seq or s % CHUNK_Q != 0 or k.shape[1] % CHUNK_KV != 0:
         return full_attention(q, k, v, causal=causal, window=window)
     return chunked_attention(q, k, v, causal=causal, window=window)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Unmasked attention of the decoder's queries q (B,S,H,hd) over the
+    encoder's keys and values k, v (B,T,KV,hd), where the reference calls
+    ``full_attention(causal=False)``.
+
+    On a CUDA tensor: the flash kernel for S > 1 (or where autograd needs
+    its Function), the decode kernel with ``kv_len = T`` for one query
+    token.  On a CPU tensor: the reference's math.  With T = 0 (the
+    reference's serve loop decodes against an empty encoder) the result is
+    exactly 0, which is the reference's too; nothing is launched.
+    """
+    if k.shape[1] == 0:
+        return torch.zeros_like(q)
+    if not q.is_cuda:
+        return full_attention(q, k, v, causal=False)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if q.shape[1] == 1 and not grad:
+        kv_len = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
+        return decode_kernel(q, k, v, kv_len)
+    return flash_kernel(q, k, v, causal=False)
 
 
 def decode_attention(

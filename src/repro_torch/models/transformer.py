@@ -10,11 +10,16 @@ trunk is rematerialized per ``cfg.remat`` (:func:`_maybe_remat`), as the
 reference wraps its scanned cycle in ``jax.checkpoint``; remat does not
 apply to inference.
 
-The ATTN (every dense config: GLM-4, Llama-3.2, Mistral-NeMo, Gemma, the
-Qwen2-VL backbone with M-RoPE), ATTN_MOE (DBRX, Moonlight), RGLRU and
-LOCAL_ATTN (RecurrentGemma) block kinds run, for inference and training.
-The xLSTM kinds and encoder-decoder models raise ``NotImplementedError``
-naming their ROADMAP item.
+Every block kind runs, for inference and training: ATTN (every dense
+config: GLM-4, Llama-3.2, Mistral-NeMo, Gemma, the Qwen2-VL backbone with
+M-RoPE), ATTN_MOE (DBRX, Moonlight), RGLRU and LOCAL_ATTN
+(RecurrentGemma), MLSTM and SLSTM (xLSTM, :mod:`repro_torch.models.xlstm`),
+and the encoder-decoder path (Whisper): :meth:`Model.encode` runs the
+stacked encoder blocks without a causal mask, and each decoder block's
+cross sublayer (:func:`_cross_part`) attends to the encoder's output
+through :func:`~repro_torch.models.layers.cross_attention`.  The built
+cache of an encoder-decoder model holds ``cross``: the first pattern
+entry's cross k/v, stacked over cycles, as in the reference.
 
 A LOCAL_ATTN cache is a ring of w = min(local_window, capacity) slots,
 token t in slot t % w, and decodes with ``kv_len = min(pos + 1, w)`` and no
@@ -70,36 +75,17 @@ from repro_torch.models.common import (
 from repro_torch.models.layers import (
     attention,
     attn_specs,
+    cross_attention,
     decode_attention,
     mlp_forward,
     mlp_specs,
     position_encode,
+    project_heads,
     qkv_project,
 )
 from repro_torch.models.moe import moe_forward, moe_specs
 from repro_torch.models.rglru import rglru_block, rglru_specs
-
-#: Block kinds and model families not ported yet → their ROADMAP item.
-UNPORTED = {
-    MLSTM: "queue 1, item 10d (xLSTM and Whisper)",
-    SLSTM: "queue 1, item 10d (xLSTM and Whisper)",
-    "encdec": "queue 1, item 10d (xLSTM and Whisper)",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run yet."""
-    for kind in (*cfg.pattern, *cfg.remainder):
-        if kind in UNPORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet (ROADMAP "
-                f"{UNPORTED[kind]})"
-            )
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP "
-            f"{UNPORTED['encdec']})"
-        )
+from repro_torch.models.xlstm import mlstm_block, mlstm_specs, slstm_block, slstm_specs
 
 
 # ---------------------------------------------------------------------------
@@ -107,14 +93,22 @@ def require_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_specs(cfg: ModelConfig, kind: str) -> dict:
+def _block_specs(cfg: ModelConfig, kind: str, *, with_cross: bool = False) -> dict:
     if kind in (ATTN, LOCAL_ATTN):
-        return {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
-    if kind == ATTN_MOE:
-        return {"attn": attn_specs(cfg), "moe": moe_specs(cfg)}
-    if kind == RGLRU:
-        return {"rglru": rglru_specs(cfg), "mlp": mlp_specs(cfg)}
-    raise ValueError(kind)
+        s = {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+    elif kind == ATTN_MOE:
+        s = {"attn": attn_specs(cfg), "moe": moe_specs(cfg)}
+    elif kind == RGLRU:
+        s = {"rglru": rglru_specs(cfg), "mlp": mlp_specs(cfg)}
+    elif kind == MLSTM:
+        s = {"mlstm": mlstm_specs(cfg)}
+    elif kind == SLSTM:
+        s = {"slstm": slstm_specs(cfg)}
+    else:
+        raise ValueError(kind)
+    if with_cross:
+        s["cross"] = attn_specs(cfg, cross=True)
+    return s
 
 
 def _stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
@@ -127,7 +121,6 @@ def _stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     specs: dict[str, Any] = {
         "embed": ParamSpec((v, d), ("vocab", "embed_nofsdp")),
@@ -139,16 +132,20 @@ def param_specs(cfg: ModelConfig) -> dict:
         specs["unembed"] = ParamSpec((d, v), ("embed_nofsdp", "vocab"))
     if cfg.rope_kind == "learned":
         specs["pos_embed"] = ParamSpec((cfg.max_seq_len, d), (None, "embed"))
+    stack = lambda blk, n: tree_map(  # noqa: E731
+        lambda s: _stack_spec(s, n), blk, is_leaf=lambda x: isinstance(x, ParamSpec)
+    )
     for kind in cfg.pattern:
-        specs["blocks"].append(
-            tree_map(
-                lambda s: _stack_spec(s, cfg.cycles),
-                _block_specs(cfg, kind),
-                is_leaf=lambda x: isinstance(x, ParamSpec),
-            )
-        )
+        specs["blocks"].append(stack(_block_specs(cfg, kind, with_cross=cfg.is_encdec),
+                                     cfg.cycles))
     for kind in cfg.remainder:
-        specs["rem_blocks"].append(_block_specs(cfg, kind))
+        specs["rem_blocks"].append(_block_specs(cfg, kind, with_cross=cfg.is_encdec))
+    if cfg.is_encdec:
+        specs["encoder"] = {
+            "blocks": stack(_block_specs(cfg, ATTN), cfg.encoder_layers),
+            "final_norm": norm_specs(cfg.norm_kind, d),
+            "pos_embed": ParamSpec((1 << 16, d), (None, "embed")),
+        }
     return specs
 
 
@@ -203,6 +200,35 @@ def _attn_part(
     return x, new_cache
 
 
+def _cross_part(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,
+    *,
+    encoder_out: Optional[torch.Tensor],
+    cross_cache: Optional[dict],
+) -> tuple[torch.Tensor, dict]:
+    """Cross-attention sublayer: the decoder's queries over the encoder's
+    k/v, from ``cross_cache`` (decode) or projected from ``encoder_out``
+    (sequence mode).  No positions, no mask.  Returns (residual-added x,
+    the k/v it attended to)."""
+    h = apply_norm(cfg.norm_kind, _norms(p), x)
+    q = project_heads(h, p["wq"])
+    if cross_cache is not None:
+        ck, cv = cross_cache["k"], cross_cache["v"]
+    elif encoder_out is not None:
+        ck, cv = project_heads(encoder_out, p["wk"]), project_heads(encoder_out, p["wv"])
+    else:
+        raise ValueError(
+            f"{cfg.name}: a cross-attention block needs the encoder's output (sequence mode) "
+            "or a cross cache (decode)"
+        )
+    out = cross_attention(q, ck, cv)
+    wo = p["wo"]
+    x = x + out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    return x, {"k": ck, "v": cv}
+
+
 def block_forward(
     cfg: ModelConfig,
     kind: str,
@@ -212,16 +238,27 @@ def block_forward(
     *,
     cache: Optional[dict] = None,
     decode_positions: Optional[torch.Tensor] = None,
+    encoder_out: Optional[torch.Tensor] = None,
+    cross_cache: Optional[dict] = None,
     causal: bool = True,
-) -> tuple[torch.Tensor, dict, torch.Tensor]:
-    """Returns (x, built/updated cache, aux_loss).
+) -> tuple[torch.Tensor, dict, torch.Tensor, Optional[dict]]:
+    """Returns (x, built/updated cache, aux_loss, built cross cache).
 
     In sequence mode (cache=None) the returned cache is the *built* decode
     cache (the full-sequence k/v for attention kinds, the final state for
-    RGLRU); in decode mode it is the cache, updated in place.  ``aux_loss``
-    is the MoE router's z-loss term (0 for the other kinds, and in decode).
+    the recurrent kinds); in decode mode it is the cache, updated in place.
+    ``aux_loss`` is the MoE router's z-loss term (0 for the other kinds,
+    and in decode).  The cross cache is the k/v a block's cross sublayer
+    attended to (None without one).
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cross: Optional[dict] = None
+    if kind == MLSTM:
+        x, new_cache = mlstm_block(cfg, p["mlstm"], x, cache=cache)
+        return x, new_cache, aux, None
+    if kind == SLSTM:
+        x, new_cache = slstm_block(cfg, p["slstm"], x, cache=cache)
+        return x, new_cache, aux, None
     if kind == RGLRU:
         x, new_cache = rglru_block(cfg, p["rglru"], x, cache=cache)
     elif kind in (ATTN, ATTN_MOE, LOCAL_ATTN):
@@ -235,8 +272,11 @@ def block_forward(
             cache=cache,
             decode_positions=decode_positions,
         )
+        if "cross" in p:
+            x, new_cross = _cross_part(
+                cfg, p["cross"], x, encoder_out=encoder_out, cross_cache=cross_cache
+            )
     else:
-        require_ported(cfg)
         raise ValueError(kind)
     if kind == ATTN_MOE:
         h = apply_norm(cfg.norm_kind, _norms(p["moe"]), x)
@@ -252,7 +292,7 @@ def block_forward(
     else:
         h = apply_norm(cfg.norm_kind, _norms(p["mlp"]), x)
         x = x + mlp_forward(cfg, p["mlp"], h)
-    return x, new_cache, aux
+    return x, new_cache, aux, new_cross
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -276,9 +316,6 @@ def _unstack(tree: Any, n: int) -> list:
 class Model:
     cfg: ModelConfig
 
-    def __post_init__(self):
-        require_ported(self.cfg)
-
     # -- embedding ---------------------------------------------------------
     def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(torch_dtype(self.cfg.dtype))
@@ -288,6 +325,27 @@ class Model:
         logits = (x @ w.to(x.dtype)).float()
         return softcap(logits, self.cfg.logits_softcap)
 
+    # -- encoder (whisper) ---------------------------------------------------
+    def encode(self, params: dict, encoder_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over frame embeddings (B,T,d): learned
+        positions, ``encoder_layers`` ATTN blocks without a causal mask
+        (each rematerialized per ``cfg.remat`` where the parameters require
+        grad), then the encoder's final norm."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        s = encoder_embeds.shape[1]
+        x = encoder_embeds + enc["pos_embed"][:s].to(encoder_embeds.dtype)
+        positions = torch.arange(s, device=x.device)[None, :]
+
+        def body(xc, layer_params):
+            return block_forward(cfg, ATTN, layer_params, xc, positions, causal=False)[0]
+
+        if _needs_remat(params):
+            body = _maybe_remat(cfg, body)
+        for layer_params in _unstack(enc["blocks"], cfg.encoder_layers):
+            x = body(x, layer_params)
+        return apply_norm(cfg.norm_kind, enc["final_norm"], x)
+
     # -- full-sequence forward (prefill) -------------------------------------
     def _trunk(
         self,
@@ -296,6 +354,7 @@ class Model:
         inputs_embeds: Optional[torch.Tensor],
         build_cache: bool,
         cache_capacity: Optional[int],
+        encoder_embeds: Optional[torch.Tensor] = None,
     ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
         """The final-normed hidden states, the built cache (or None) and the
         summed aux loss."""
@@ -308,23 +367,33 @@ class Model:
         positions = torch.arange(s, device=x.device)[None, :]
         if cfg.rope_kind == "learned":
             x = x + params["pos_embed"][:s].to(x.dtype)
+        encoder_out = None
+        if cfg.is_encdec:
+            if encoder_embeds is None:
+                raise ValueError(
+                    f"{cfg.name} is an encoder-decoder model: pass encoder_embeds (the "
+                    "reference asserts them too)"
+                )
+            encoder_out = self.encode(params, encoder_embeds)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         built: list[list[dict]] = [[] for _ in cfg.pattern]
+        crosses: list[dict] = []
 
         def cycle(xc, cycle_params):
             aux = torch.zeros((), dtype=torch.float32, device=xc.device)
             for j, kind in enumerate(cfg.pattern):
-                xc, layer_cache, a = block_forward(
-                    cfg, kind, cycle_params[j], xc, positions, causal=True
+                xc, layer_cache, a, cross = block_forward(
+                    cfg, kind, cycle_params[j], xc, positions, encoder_out=encoder_out,
+                    causal=True,
                 )
                 aux = aux + a
                 if build_cache:
                     built[j].append(layer_cache)
+                    if j == 0 and cross is not None:
+                        crosses.append(cross)
             return xc, aux
 
-        if not build_cache and torch.is_grad_enabled() and any(
-            t.requires_grad for t in tree_leaves(params)
-        ):
+        if not build_cache and _needs_remat(params):
             cycle = _maybe_remat(cfg, cycle)
         layers = [_unstack(blk, cfg.cycles) for blk in params["blocks"]]
         for c in range(cfg.cycles):
@@ -332,8 +401,9 @@ class Model:
             aux_total = aux_total + aux
         rem_built = []
         for j, kind in enumerate(cfg.remainder):
-            x, layer_cache, aux = block_forward(
-                cfg, kind, params["rem_blocks"][j], x, positions, causal=True
+            x, layer_cache, aux, _ = block_forward(
+                cfg, kind, params["rem_blocks"][j], x, positions, encoder_out=encoder_out,
+                causal=True,
             )
             aux_total = aux_total + aux
             rem_built.append(layer_cache)
@@ -341,6 +411,8 @@ class Model:
         cache = None
         if build_cache:
             cache = self._cache_from_built(built, rem_built, s, cache_capacity or s)
+            if crosses:
+                cache["cross"] = {n: torch.stack([e[n] for e in crosses]) for n in ("k", "v")}
         return x, cache, aux_total
 
     def forward(
@@ -355,10 +427,12 @@ class Model:
     ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
         """Returns (logits, cache_or_None, aux_loss).
 
-        ``encoder_embeds`` is ignored, as in the reference for decoder-only
-        configs (encoder-decoder configs raise at ``Model(cfg)``).
+        An encoder-decoder config needs ``encoder_embeds`` (B,T,d), the
+        frame embeddings its stub frontend stands for; a decoder-only
+        config ignores them, as the reference does.
         """
-        x, cache, aux = self._trunk(params, tokens, inputs_embeds, build_cache, cache_capacity)
+        x, cache, aux = self._trunk(params, tokens, inputs_embeds, build_cache, cache_capacity,
+                                    encoder_embeds)
         return self.unembed(params, x), cache, aux
 
     def _cache_from_built(
@@ -372,7 +446,8 @@ class Model:
         in the reference.  LOCAL_ATTN: a ring of w = min(local_window,
         capacity) slots holding the last w tokens, token t in slot t % w; a
         prompt shorter than w fills slots 0..s-1 and leaves zeros after them.
-        RGLRU: the final state each block returned.
+        The recurrent kinds (RGLRU, MLSTM, SLSTM): the final state each
+        block returned, as it is.
         """
         cfg = self.cfg
         cap = max(capacity, s)
@@ -394,8 +469,8 @@ class Model:
             return out
 
         def assemble(kind: str, entries: list[dict]) -> dict:
-            if kind == RGLRU:
-                return {n: torch.stack([e[n] for e in entries]) for n in ("h", "conv")}
+            if kind in (RGLRU, MLSTM, SLSTM):
+                return {n: torch.stack([e[n] for e in entries]) for n in entries[0]}
             fix = to_ring if kind == LOCAL_ATTN else grow
             return {n: fix([e[n] for e in entries]) for n in ("k", "v")}
 
@@ -419,14 +494,18 @@ class Model:
 
         Updates ``cache`` in place (one k/v row, or the recurrent state, per
         sequence and layer) and returns it beside the logits (B,1,V) in f32.
+        An encoder-decoder model reads cycle c's cross k/v from
+        ``cache["cross"]`` (leaves (cycles, B, T_enc, KV, hd)).
         """
         cfg = self.cfg
         x = self.embed(params, tokens)
         if cfg.rope_kind == "learned":
             x = x + params["pos_embed"][positions][:, None].to(x.dtype)
+        cross = cache.get("cross")
         for c in range(cfg.cycles):
+            cycle_cross = None if cross is None else _layer(cross, c)
             for j, kind in enumerate(cfg.pattern):
-                x, _, _ = block_forward(
+                x, _, _, _ = block_forward(
                     cfg,
                     kind,
                     _layer(params["blocks"][j], c),
@@ -434,9 +513,10 @@ class Model:
                     positions[:, None],
                     cache=_layer(cache["scan"][j], c),
                     decode_positions=positions,
+                    cross_cache=cycle_cross,
                 )
         for j, kind in enumerate(cfg.remainder):
-            x, _, _ = block_forward(
+            x, _, _, _ = block_forward(
                 cfg,
                 kind,
                 params["rem_blocks"][j],
@@ -476,6 +556,12 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _needs_remat(params: dict) -> bool:
+    """Whether a forward is differentiated: grad mode on and a parameter
+    requiring grad (remat does not apply to inference)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(params))
+
+
 def _maybe_remat(cfg: ModelConfig, fn: Callable) -> Callable:
     """``fn`` rematerialized per ``cfg.remat``: ``"none"`` keeps every
     activation, ``"full"`` recomputes the whole cycle in the backward,
@@ -498,7 +584,8 @@ def make_train_step(cfg: ModelConfig, optimizer) -> Callable:
     """(params, opt_state, batch) → (params, opt_state, metrics).
 
     ``batch`` holds ``tokens`` and ``labels`` as int tensors on the
-    parameters' device.  The gradients of :meth:`Model.loss` go through
+    parameters' device (and, for an encoder-decoder model,
+    ``encoder_embeds``).  The gradients of :meth:`Model.loss` go through
     the kernels' autograd Functions on the card; the optimizer's
     :meth:`~repro_torch.optim.AdamW.apply` then gives ``(p + u).to(p.dtype)``
     leaf by leaf, as the reference's step does, and spends ``opt_state``
@@ -537,7 +624,8 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
     def prefill_step(params, batch):
         x, cache, _ = model._trunk(
-            params, batch.get("tokens"), batch.get("inputs_embeds"), True, None
+            params, batch.get("tokens"), batch.get("inputs_embeds"), True, None,
+            batch.get("encoder_embeds"),
         )
         return model.unembed(params, x[:, -1:]), cache
 

@@ -24,6 +24,10 @@ superstep (a record pipeline, both routing modes) equals the card's
 captured scan replays bit-identical to the same loop run eagerly, with both
 routing kernels inside the graph held against their plain versions; and
 its ticks and scans raise nothing under the sync debug mode.  The
+flash and decode kernels are held at Whisper's attention shapes (hd 64, the
+unmasked 1,500-frame encoder, cross attention), the cross entry point over
+no frames launches nothing, and the xLSTM and Whisper SMOKE models run on
+the card against ``device="cpu"``.  The
 multi-worker runtime routes on the card from four worker processes, forked
 in a fresh interpreter, equal to the single-process card engine, and
 refuses ``device="cuda"`` once its caller has initialized CUDA.  Without a
@@ -1268,3 +1272,116 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(got[2]["loss"].cpu(), want[2]["loss"], atol=1e-4, rtol=1e-4)
     for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
         torch.testing.assert_close(a.cpu(), b, atol=2e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Whisper's attention shapes and the xLSTM blocks on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,t,causal", [(1500, 1500, False), (448, 1500, False),
+                                        (448, 448, True)],
+                         ids=["encoder", "cross", "decoder"])
+def test_flash_kernel_at_whisper_shapes(cuda, s, t, causal):
+    """hd 64 through the wgmma body: the encoder without a mask at S = T =
+    1,500 (a ragged edge of neither 64 nor 128 rows), cross attention
+    (S ≠ T) and the decoder's causal self attention; each row within 1e-2
+    of its norm as well (chip_smoke.py's row check)."""
+    from repro_torch.kernels.flash_attention.ops import kernel_path
+
+    assert kernel_path(torch.bfloat16, 64) == "wgmma"
+    g = torch.Generator().manual_seed(s + t)
+    q = torch.randn(2, s, 12, 64, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(2, t, 12, 64, generator=g).to(torch.bfloat16) for _ in range(2))
+    reset_launch_counts()
+    out = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    ref = attention_ref(q, k, v, causal=causal)
+    _close(out, ref, torch.bfloat16)
+    assert _row_err(out.cpu(), ref) <= 1e-2
+
+
+def test_decode_kernel_at_whisper_cross_shape(cuda):
+    """G = 1, hd 64, every row's kv_len the encoder's 1,500 frames (the
+    cross decode), and the decoder's self decode at T = 448."""
+    from repro_torch.kernels.decode_attention import ops
+
+    assert ops.kernel_path(torch.bfloat16, 1, 64) == "mma"
+    for t, lens in ((1500, [1500] * 4), (448, [1, 100, 447, 448])):
+        q, kc, vc, lens = _decode_case(4, 12, 12, 64, t, t, lens)
+        reset_launch_counts()
+        out = decode_attention(q.to(cuda), kc.to(cuda), vc.to(cuda), lens.to(cuda))
+        torch.cuda.synchronize()
+        assert launch_counts()["decode_attention"] == 1
+        ref = decode_attention_ref(q, kc, vc, lens)
+        _close(out, ref, torch.bfloat16)
+        assert _row_err(out.cpu(), ref) <= 1e-2
+
+
+@pytest.mark.parametrize("s", [1, 7])
+def test_cross_attention_routes_to_the_kernels_and_not_over_no_frames(cuda, s):
+    """``layers.cross_attention``: S > 1 launches flash, S = 1 the decode
+    kernel, each equal to the plain version; T = 0 returns exact zeros and
+    launches nothing."""
+    from repro_torch.models.layers import cross_attention
+
+    g = torch.Generator().manual_seed(s)
+    q = torch.randn(2, s, 12, 64, generator=g).to(torch.bfloat16).to(cuda)
+    k, v = (torch.randn(2, 300, 12, 64, generator=g).to(torch.bfloat16).to(cuda)
+            for _ in range(2))
+    reset_launch_counts()
+    out = cross_attention(q, k, v)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention" if s > 1 else "decode_attention"] == 1
+    assert sum(counts.values()) == 1
+    _close(out, attention_ref(q, k, v, causal=False), torch.bfloat16)
+    reset_launch_counts()
+    empty = torch.zeros(2, 0, 12, 64, dtype=torch.bfloat16, device=cuda)
+    zeros = cross_attention(q, empty, empty)
+    assert not any(launch_counts().values())
+    assert zeros.is_cuda and torch.equal(zeros, torch.zeros_like(q))
+
+
+@pytest.mark.parametrize("arch", ["xlstm_1_3b", "whisper_small"])
+def test_xlstm_and_whisper_smoke_on_card_match_cpu(cuda, arch):
+    """SMOKE prefill (xLSTM over two 256-token chunks, Whisper over 20
+    frames) and 3 decode steps in float32 on the card against
+    device="cpu"; Whisper's attention launches flash (encoder, decoder
+    self and cross) and the decode kernel, xLSTM launches no kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_params
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    model = Model(cfg)
+    s = 512 if arch == "xlstm_1_3b" else 12
+    toks = torch.randint(0, cfg.vocab_size, (2, s), generator=torch.Generator().manual_seed(1))
+    kw = {}
+    if cfg.is_encdec:
+        kw["encoder_embeds"] = torch.randn(2, 20, cfg.d_model,
+                                           generator=torch.Generator().manual_seed(2))
+    logits_c, cache_c, _ = model.forward(params, tokens=toks, build_cache=True,
+                                         cache_capacity=s + 8, **kw)
+    params_g = tree_map(lambda a: a.to(cuda), params)
+    reset_launch_counts()
+    logits_g, cache_g, _ = model.forward(params_g, tokens=toks.to(cuda), build_cache=True,
+                                         cache_capacity=s + 8,
+                                         **{k: v.to(cuda) for k, v in kw.items()})
+    for step in range(3):
+        nxt = torch.full((2, 1), 7 + step)
+        pos = torch.full((2,), s + step)
+        dec_c, _ = model.decode_step(params, cache_c, nxt, pos)
+        dec_g, _ = model.decode_step(params_g, cache_g, nxt.to(cuda), pos.to(cuda))
+        np.testing.assert_allclose(dec_g.cpu().numpy(), dec_c.numpy(), atol=5e-3, rtol=1e-3)
+    counts = launch_counts()
+    if cfg.is_encdec:
+        assert counts["flash_attention"] == cfg.encoder_layers + 2 * cfg.cycles
+        assert counts["decode_attention"] == 3 * 2 * cfg.cycles
+    else:
+        assert not any(counts.values())
+    np.testing.assert_allclose(logits_g.cpu().numpy(), logits_c.numpy(), atol=5e-3, rtol=1e-3)

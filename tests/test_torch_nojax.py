@@ -9,8 +9,8 @@ with checkpoints, a planted kill and a respawn), Real Jobs 1 (``.typed()``)
 and 4 (``.jit()``) with the three baselines on their snapshots, a skew
 scenario, the ``Engine`` guard against ``.workers(n)``, fused ticks and a K-tick scan of
 the fused superstep (``repro_torch.engine.superstep``), one SMOKE decode
-tick of the serve loop for a dense, a hybrid (RG-LRU + windowed attention)
-and a MoE config, and one CPU train step (the optimizer, the token
+tick of the serve loop for a dense, a hybrid (RG-LRU + windowed attention),
+a MoE, the xLSTM and the encoder-decoder (Whisper) config, and one CPU train step (the optimizer, the token
 pipeline, the trainer's config) in a subprocess where ``import jax`` and
 ``import repro`` fail.
 """
@@ -69,7 +69,7 @@ import repro_torch
 import repro_torch.core, repro_torch.data, repro_torch.engine, repro_torch.kernels
 import repro_torch.solver
 import repro_torch.configs, repro_torch.models, repro_torch.launch.serve
-import repro_torch.models.moe, repro_torch.models.rglru
+import repro_torch.models.moe, repro_torch.models.rglru, repro_torch.models.xlstm
 import repro_torch.kernels.moe_gemm, repro_torch.kernels.rglru_scan
 import repro_torch.engine.superstep
 from repro_torch.data import StreamSpec, airline_stream, real_job_3
@@ -184,7 +184,8 @@ else:
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import DecodeWorker
 from repro_torch.models import init_params
-for arch in ("glm4_9b", "recurrentgemma_2b", "moonshot_v1_16b_a3b"):
+for arch in ("glm4_9b", "recurrentgemma_2b", "moonshot_v1_16b_a3b", "xlstm_1_3b",
+             "whisper_small"):
     cfg = get_config(arch, smoke=True)
     worker = DecodeWorker(0, cfg, init_params(cfg, 0, device="cpu"), 2, device="cpu")
     worker.occupant[0], worker.positions[0], worker.tokens[0, 0] = 0, 5, 1

@@ -233,7 +233,7 @@ def test_moe_block_aux_matches_reference(arch):
     positions = np.arange(40)[None, :]
     ref_x, _, ref_aux, _ = ref_block_forward(ref_cfg, ATTN_MOE, ref_p, jnp.asarray(x),
                                              jnp.asarray(positions))
-    got_x, _, aux = block_forward(cfg, ATTN_MOE, p, torch.from_numpy(x),
+    got_x, _, aux, _ = block_forward(cfg, ATTN_MOE, p, torch.from_numpy(x),
                                   torch.from_numpy(positions))
     # The block's outputs reach |x| ~ 30 at the reference's init; summation
     # order errors scale with the largest terms, so atol scales with them.

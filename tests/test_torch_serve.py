@@ -176,14 +176,16 @@ def test_serve_loop_matches_reference_main(fixed_clocks, monkeypatch, capsys):
     assert stats.decode_tokens > 0 and stats.migrations == 0
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "moonshot_v1_16b_a3b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "moonshot_v1_16b_a3b", "xlstm_1_3b",
+                                  "whisper_small"])
 def test_serve_main_matches_reference_main(arch, fixed_clocks, monkeypatch, capsys):
     """``python -m repro_torch.launch.serve --arch <arch> --device cpu``
     against the reference's ``main()``: the loop's bookkeeping (log lines,
     controller states) does not depend on the decoded values, so the two
     agree line for line -- though the reference's windowed decode is wrong
-    past RecurrentGemma's window (ROADMAP queue 3) and the parameters
-    differ (each package's own ``init_params``)."""
+    past RecurrentGemma's window (ROADMAP queue 3), Whisper is served
+    against an empty encoder in both, and the parameters differ (each
+    package's own ``init_params``)."""
     states = _record_states(monkeypatch)
     argv = _argv(arch, SERVE_SETTINGS)
     monkeypatch.setattr("sys.argv", ["serve", *argv])

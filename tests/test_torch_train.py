@@ -74,9 +74,10 @@ from repro_torch.optim import (  # noqa: E402
 from repro_torch.optim.compress import compressed_psum  # noqa: E402
 
 F32_TOL = dict(atol=2e-4, rtol=2e-4)  # tests/test_torch_models.py:56
-#: Every smoke arch the port runs (xLSTM and Whisper wait for item 10d).
+#: Every decoder-only smoke arch (Whisper's batches need encoder_embeds:
+#: tests/test_torch_encdec.py).
 ARCHS = ["dbrx_132b", "gemma_7b", "glm4_9b", "llama3_2_3b", "mistral_nemo_12b",
-         "moonshot_v1_16b_a3b", "qwen2_vl_7b", "recurrentgemma_2b"]
+         "moonshot_v1_16b_a3b", "qwen2_vl_7b", "recurrentgemma_2b", "xlstm_1_3b"]
 
 
 def _bits(x) -> bytes:
