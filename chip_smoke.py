@@ -230,10 +230,31 @@ error or mismatch:
    decoded token held against a full forward in f32 on 2 decoder and 2
    encoder layers; the serve loop decodes against an empty encoder (the
    reference's ``DecodeWorker``), so its cross sublayers launch nothing;
+12. the mesh and dry-run tooling (``--dryrun`` runs it alone) on the card's
+   1×1 mesh: (a) ``repro_torch.launch.dryrun`` over every arch × shape at
+   the configs' full sizes, each step traced on meta tensors under the
+   roofline's op counter (FLOPs and bytes > 0 in each of the 32 ``ok``
+   rows, the 8 ``skip`` rows with the reference's reasons), the table
+   printed with the H100 peaks of ``repro_torch.launch.roofline``; (b)
+   with ``run``, the four decode cells that fit (RecurrentGemma-2B and
+   xLSTM-1.3B at ``decode_32k`` and ``long_500k``) run at full width and
+   depth, seeded weights, zero caches, every row at position seq_len - 1:
+   the bytes allocated for their arguments equal to the count from the
+   shapes, the measured step (CUDA events, median of 5) no faster than
+   its roofline bound, RecurrentGemma's through decode_attention; (c)
+   inside phase 8, on its weights: Moonlight-16B-A3B's prefill and one
+   decode step under ``activation_rules(rules_for(...), mesh=...)`` take
+   the expert-parallel path (every MoE layer, through moe_gemm) and are
+   held by the row check to the same steps without the context (both
+   under deterministic algorithms, so bit equality is reported too); (d)
+   Real Job 3 at phase 3's deployment under ``.jit(mesh=make_mesh((1,),
+   ("nodes",)))`` for 2 ticks + drain against ``.jit()``: sink outputs and
+   integers equal, floats within rtol 1e-9, both routing kernels on every
+   hop;
 
 then one JSON line listing the kernels with their launches on the paths
-that run them (phases 3, 3j, 3r, 3s, 3w, 4 and 4s for routing, 5-11 for the LM
-kernels; phase 9's also apart, with its backward launches), times,
+that run them (phases 3, 3j, 3r, 3s, 3w, 4, 4s and 12 (d) for routing,
+5-12 for the LM kernels; phase 9's also apart, with its backward launches), times,
 bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
 and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
 without CUDA, and outside a checkout that holds ``src/repro_torch``.
@@ -244,7 +265,8 @@ host microseconds per call of the decode path's kernel wrappers
 can be compared in one call.  ``--kernel-ms [SRC]`` likewise prints only
 keygroup_partition's and rglru_scan's phase-2 timings and yardsticks
 (``kernel_ms``).  ``--workers`` runs phase 3w alone (the full run starts it
-so, as a child, and relays its lines).
+so, as a child, and relays its lines).  ``--dryrun`` runs phase 12 alone,
+(c) on Moonlight's weights loaded for it after (b).
 """
 
 from __future__ import annotations
@@ -333,13 +355,6 @@ XL_TOL = dict(atol=1e-4, rtol=1e-5)
 WH_ARCH, WH_CONTEXT, WH_FRAMES = "whisper_small", 448, 1500
 WH_BATCH, WH_PROMPT, WH_DECODE_STEPS = 16, 384, 32
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the 32-bit
-# non-tensor-core rate, which bounds the routing kernels' integer lanes, and
-# the dense bf16 tensor-core rate, which bounds attention's matrix products.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
 FLOAT_RTOL = 1e-12
 # The compiled tier's documented float tolerance (tests/conformance.py,
 # JIT_FLOAT_RTOL/ATOL): running sums associate differently from the
@@ -453,9 +468,22 @@ def fmt_rounds(t: dict) -> str:
             f"[{hlo:.4f}-{hhi:.4f}] ms")
 
 
-def bound_ms(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / ops_per_s
+def peak(rate: str) -> float:
+    """The H100 SXM's data-sheet peak of ``rate``, from
+    ``repro_torch.launch.roofline`` (the one place they are defined): HBM
+    bytes/s, the 32-bit non-tensor-core rate (``"int32"``, ``"f32"``),
+    which bounds the routing kernels' integer lanes and the scan, and the
+    dense bf16 tensor-core rate (``"bf16"``), which bounds attention's and
+    the experts' matrix products."""
+    from repro_torch.launch import roofline
+
+    return {"hbm": roofline.HBM_BW, "int32": roofline.PEAK_INT32_OPS,
+            "f32": roofline.PEAK_F32_FLOPS, "bf16": roofline.PEAK_FLOPS}[rate]
+
+
+def bound_ms(nbytes: int, ops: int, rate: str = "int32") -> tuple[float, str]:
+    t_bytes = nbytes / peak("hbm")
+    t_ops = ops / peak(rate)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -759,7 +787,7 @@ def attention_kernel_checks(dev, *, batch=LM_BATCH, seq=LM_PROMPT, heads=32, kv=
             pairs = seq * (seq + 1) // 2  # causal (query, key) pairs per head
             flops = 4 * b * heads * hd * pairs
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-            b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+            b_ms, b_by = bound_ms(nbytes, flops, "bf16")
             main = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
             log(f"[kernel] flash_attention GLM prefill: B={b} S={seq} H={heads} KV={kv} hd={hd} "
                 f"causal: {ms:.4f} ms (plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
@@ -897,7 +925,7 @@ def decode_timed_case(dev, what: str, b: int, t: int, kv: int, g: int, hd: int, 
     })
     live = int(steady.sum())
     nbytes = 2 * (2 * live * kv * hd + 2 * q.numel())
-    b_ms, b_by = bound_ms(nbytes, 4 * h * hd * live, BF16_FLOPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 4 * h * hd * live, "bf16")
     kern_t = times["kernel"]
     log(f"[kernel] decode_attention {what}: B={b} T={t} H={h} KV={kv} G={g} hd={hd} "
         f"kv_len={live_len}, {path} body, {nsplit} splits: kernel {fmt_rounds(kern_t)}; sdpa "
@@ -974,7 +1002,7 @@ def flash_timed_case(dev, what: str, b: int, s: int, h: int, kv: int, hd: int,
     lib = cuda_ms(lambda i: sdpa(qt, kt, vt, is_causal=causal), reps)
     pairs = s * (s + 1) // 2 if causal else s * t  # (query, key) pairs a head attends
     flops = 4 * b * h * hd * pairs
-    b_ms, b_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), flops, BF16_FLOPS_PER_S)
+    b_ms, b_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), flops, "bf16")
     log(f"[kernel] flash_attention {what}: B={b} S={s} T={t} H={h} KV={kv} hd={hd} {mask}: "
         f"{ms:.4f} ms (plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
         f"{flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound), max_abs_err={err} "
@@ -1047,7 +1075,7 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
     del faulty
     times = scan_timings(a, bb, h0)
     plain = cuda_ms(lambda i: rglru_scan_ref(a, bb, h0), 3)
-    b_ms, b_by = bound_ms(4 * (3 * a.numel() + h0.numel()), 2 * a.numel(), F32_FLOPS_PER_S)
+    b_ms, b_by = bound_ms(4 * (3 * a.numel() + h0.numel()), 2 * a.numel(), "f32")
     ms = times["kernel"]["device_ms"]
     log(f"[kernel] rglru_scan B={b} S={s} W={w} f32, {body} body ({scan_ops.TILE}-channel "
         f"tiles): kernel "
@@ -1100,7 +1128,7 @@ def scan_and_expert_kernel_checks(dev, reps: int = 10) -> dict[str, dict]:
         body = moe_kernel_path(e, rows, d, f, torch.bfloat16, True)
         flops = 2 * e * rows * d * f
         b_ms, b_by = bound_ms(2 * (x.numel() + wt.numel() + e * rows * f), flops,
-                              BF16_FLOPS_PER_S)
+                              "bf16")
         case = dict(shape=f"x ({e},{rows},{d}) w ({e},{d},{f}) bf16 ({label})", body=body,
                     max_abs_err=err, max_row_rel_err=rel, planted_fault_row_rel_err=fault,
                     bound_ms=b_ms, bound_by=b_by)
@@ -1173,7 +1201,8 @@ def moe_dispatch_cases(dev, gen, cfg, reps: int) -> list[dict]:
     out = []
     for label, b in (("decode", MOE_BATCH), ("serve", SERVE["slots"])):
         tokens = torch.randn(b, 1, d, generator=gen, device=dev).to(bf16)
-        tok_slot, _, used, _, chosen = _row_dispatch(cfg, tokens, router, 1)
+        tok_slot, _, used, _, chosen = _row_dispatch(cfg, tokens, router, 1, 0,
+                                                     cfg.moe.num_experts)
         rows = torch.arange(b, device=dev)[:, None]
         xin = tokens[rows, tok_slot] * used[..., None].to(bf16)
         xin = xin.reshape(b, e, 1, d).transpose(0, 1).reshape(e, b, d).contiguous()
@@ -1209,9 +1238,9 @@ def moe_dispatch_cases(dev, gen, cfg, reps: int) -> list[dict]:
                 "plain": (lambda i, x=x, w=w: moe_gemm_ref(x, w), 3)})
             io = 2 * (x.numel() + e * b * w.shape[2])
             b_ms, b_by = bound_ms(io + 2 * w.numel(), 2 * x.numel() * w.shape[2],
-                                  BF16_FLOPS_PER_S)
+                                  "bf16")
             live_ms, _ = bound_ms(io + 2 * n_live * w[0].numel(),
-                                  2 * n_live * b * x.shape[2] * w.shape[2], BF16_FLOPS_PER_S)
+                                  2 * n_live * b * x.shape[2] * w.shape[2], "bf16")
             kern_t = times["kernel"]
             log(f"[kernel] {what}: x ({e},{b},{x.shape[2]}) w ({e},{x.shape[2]},{w.shape[2]}) "
                 f"bf16, {n_live} of {e} experts live: kernel {fmt_rounds(kern_t)}; same body "
@@ -3845,9 +3874,10 @@ LM_RUNS = (
     # The MoE check compares only rows whose last token no expert bucket
     # dropped (check_prefill_decode), so it takes all 4 prompts: with 2, a
     # change of the first decoded token left none to compare.
+    # Phase 12 (c) runs on these weights too: expert_parallel.
     dict(arch=MOE_ARCH, context=MOE_CONTEXT, batch=MOE_BATCH, prompt=MOE_PROMPT,
          steps=MOE_DECODE_STEPS, check_cycles=CHECK_CYCLES, check_rows=MOE_BATCH,
-         serve_context=MOE_SERVE_CONTEXT, serve=SERVE),
+         serve_context=MOE_SERVE_CONTEXT, serve=SERVE, expert_parallel=True),
     # No kernel on its path: check_chunk_boundary takes the place of the
     # kernel pairings and of check_prefill_decode.
     dict(arch=XL_ARCH, context=XL_CONTEXT, batch=XL_BATCH, prompt=XL_PROMPT,
@@ -3929,10 +3959,251 @@ def run_lm(dev, drive, spec: dict) -> tuple[dict, dict]:
               f"{per_step} decode kernels a step, not one per self attention layer")
     check(all(serve_counts[k] == 0 for k in serve_counts if k not in decode),
           f"{cfg.name}: the serve loop launched a kernel off its path: {serve_counts}")
+    if spec.get("expert_parallel"):
+        lm["expert_parallel"] = ep_steps(dev, drive, cfg, params, spec)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return lm, served
+
+
+# --------------------------------------------------------------------- phase 12
+# The mesh and dry-run tooling (repro_torch.launch.{mesh,sharding,roofline,
+# dryrun}) on the card's 1×1 mesh.
+DRY_FITS = {("recurrentgemma_2b", "decode_32k"), ("recurrentgemma_2b", "long_500k"),
+            ("xlstm_1_3b", "decode_32k"), ("xlstm_1_3b", "long_500k")}
+DRY_OK, DRY_SKIP = 32, 8  # applicable cells, and long_500k of the 8 full-attention archs
+MESH_TICKS = 2  # (d): Real Job 3 ticks under .jit(mesh=...) at phase 3's size
+
+
+@contextlib.contextmanager
+def counted_expert_parallel(calls: list):
+    """While active, each call of ``moe._moe_expert_parallel`` is counted."""
+    import repro_torch.models.moe as moe
+
+    routed = moe._moe_expert_parallel
+
+    def counted(*args):
+        calls.append(1)
+        return routed(*args)
+
+    moe._moe_expert_parallel = counted
+    try:
+        yield
+    finally:
+        moe._moe_expert_parallel = routed
+
+
+def ep_steps(dev, drive, cfg, params, spec: dict) -> dict:
+    """Phase 12 (c): one prefill and one decode step of the model under its
+    own rules on the card's 1×1 mesh (``activation_rules(rules_for(cfg,
+    shape, mesh), mesh=mesh)``): every MoE layer takes the expert-parallel
+    path, through moe_gemm, and is held to the same steps without the
+    context by the row check.  Both runs take torch's deterministic
+    algorithms (warnings only), so ``index_add_``'s combine sums in one
+    order in both; bit equality is reported.  The run under the context is
+    the counted one."""
+    import torch
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import rules_for
+    from repro_torch.models import Model
+    from repro_torch.models.common import activation_rules
+
+    model = Model(cfg)
+    b, prompt = spec["batch"], spec["prompt"]
+    tokens = torch.from_numpy(
+        np.random.default_rng(SEED).integers(0, cfg.vocab_size, (b, prompt))).to(dev)
+    nxt = tokens[:, :1].clone()  # one fixed next token, the same in both runs
+    pos = torch.full((b,), prompt, dtype=torch.int64, device=dev)
+    mesh = make_host_mesh(device=dev)
+
+    def steps(rules=None):
+        ctx = [activation_rules(r, mesh=mesh) for r in rules] if rules else [None, None]
+        with torch.inference_mode():
+            with ctx[0] or contextlib.nullcontext():
+                logits, cache, _ = model.forward(params, tokens=tokens, build_cache=True,
+                                                 cache_capacity=spec["context"])
+            last = logits[:, -1].float()
+            del logits
+            with ctx[1] or contextlib.nullcontext():
+                out, cache = model.decode_step(params, cache, nxt, pos)
+            torch.cuda.synchronize()
+        del cache
+        return last, out[:, 0].float()
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain = steps()
+        rules = [rules_for(cfg, SHAPES[name], mesh) for name in ("prefill_32k", "decode_32k")]
+        check(all(r["expert"] == "model" for r in rules), f"{cfg.name}: experts off 'model'")
+        calls: list = []
+        t0 = time.perf_counter()
+        with counted_expert_parallel(calls):
+            (ep, counts) = drive(("moe_gemm", "flash_attention", "decode_attention"), steps,
+                                 rules)
+        secs = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    moe_layers = layer_counts(cfg)["moe"]
+    check(len(calls) == 2 * moe_layers, f"{cfg.name}: {len(calls)} expert-parallel calls, not "
+          f"{2 * moe_layers} (one per MoE layer in the prefill and in the decode step)")
+    check(counts["moe_gemm"] == 6 * moe_layers, f"{cfg.name}: expert-parallel prefill + decode "
+          f"launched moe_gemm {counts['moe_gemm']} times, not {6 * moe_layers}")
+    out = dict(ep_calls=len(calls), launches={k: n for k, n in counts.items() if n},
+               seconds=secs)
+    for what, got, want in (("prefill last-position logits", ep[0], plain[0]),
+                            ("decode logits", ep[1], plain[1])):
+        check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite {what} under EP")
+        rel = row_rel_err(got, want)
+        check(rel <= ROW_RTOL, f"{cfg.name}: expert-parallel {what} are {rel:.3e} of a row's "
+              f"norm from the same step without the context (limit {ROW_RTOL})")
+        key = what.split()[0]
+        out[f"{key}_row_rel_err"] = rel
+        out[f"{key}_bit_equal"] = bool(torch.equal(got, want))
+    log(f"[dryrun/ep] {cfg.name} under its rules on the 1x1 mesh: {len(calls)} expert-parallel "
+        f"MoE layers (prefill {b}x{prompt} + one decode step) in {secs:.2f} s, launches "
+        f"{out['launches']}; against the same steps without the context: prefill row error "
+        f"{out['prefill_row_rel_err']:.3e} (bit-equal {out['prefill_bit_equal']}), decode "
+        f"{out['decode_row_rel_err']:.3e} (bit-equal {out['decode_bit_equal']})")
+    return out
+
+
+def run_dryrun(dev) -> dict:
+    """Phase 12 (a) and (b): ``repro_torch.launch.dryrun`` over every arch ×
+    shape on the card's 1×1 mesh, with ``run``: 32 cells traced on meta
+    tensors (FLOPs and bytes > 0), 8 skipped with the reference's reasons,
+    and the four decode cells that fit run once at full size, their
+    allocated argument bytes equal to the count from the shapes, their
+    measured step no faster than its roofline bound."""
+    from repro_torch.configs.base import ARCH_IDS, SHAPES, get_config, shape_applicable
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    rows, failures = dryrun.run_all(ARCH_IDS, list(SHAPES), [("host", make_host_mesh(device=dev))],
+                                    out=None, run=True, device=dev)
+    secs = time.perf_counter() - t0
+    check(failures == 0, f"the dry run failed {failures} cells")
+    ok = [r for r in rows if r["status"] == "ok"]
+    skip = [r for r in rows if r["status"] == "skip"]
+    check(len(ok) == DRY_OK and len(skip) == DRY_SKIP,
+          f"the dry run gave {len(ok)} ok and {len(skip)} skipped rows")
+    for r in skip:
+        check(r["reason"] == shape_applicable(get_config(r["arch"]), SHAPES[r["shape"]])[1],
+              f"{r['arch']} x {r['shape']}: skip reason {r['reason']!r}")
+    for r in ok:
+        check(r["trace_flops_total"] > 0 and r["trace_bytes_total"] > 0,
+              f"{r['arch']} x {r['shape']}: no FLOPs or bytes counted")
+    ran = {(r["arch"], r["shape"]): r for r in ok if "run" in r}
+    check(set(ran) == DRY_FITS, f"the dry run ran {sorted(ran)}, not {sorted(DRY_FITS)}")
+    table = []
+    for r in ok:
+        row = dict(arch=r["arch"], shape=r["shape"], compute_s=r["compute_s"],
+                   memory_s=r["memory_s"], dominant=r["dominant"],
+                   argument_gb=r["memory_analysis"]["argument_bytes"] / 1e9, fits=r["fits"],
+                   kernel_ops=r["kernel_ops"])
+        run = r.get("run")
+        if run:
+            key = f"{r['arch']} x {r['shape']}"
+            check(run["allocated_bytes"] == r["memory_analysis"]["argument_bytes"],
+                  f"{key}: {run['allocated_bytes']} bytes allocated, "
+                  f"{r['memory_analysis']['argument_bytes']} counted from the shapes")
+            check(run["logits_finite"], f"{key}: non-finite logits")
+            check(run["measured_ms"] >= 1e3 * r["bound_s"],
+                  f"{key}: {run['measured_ms']:.4f} ms a step, under its roofline bound "
+                  f"{1e3 * r['bound_s']:.4f} ms: the count is wrong")
+            rg = r["arch"] == "recurrentgemma_2b"
+            check((run["launches_per_step"].get("decode_attention", 0) > 0) == rg,
+                  f"{key}: decode_attention launches per step {run['launches_per_step']}")
+            row.update(measured_ms=run["measured_ms"], bound_ms=run["bound_ms"],
+                       peak_gb=run["peak_bytes"] / 1e9, launches_per_step=run["launches_per_step"])
+        table.append(row)
+        log(f"[dryrun/table] {r['arch']:>20s} {r['shape']:<11s} compute {r['compute_s']:.6g} s "
+            f"memory {r['memory_s']:.6g} s ({r['dominant']}), args "
+            f"{row['argument_gb']:.3f} GB, fits {r['fits']}"
+            + (f"; run {row['measured_ms']:.4f} ms/step vs bound {row['bound_ms']:.4f} ms, "
+               f"peak {row['peak_gb']:.2f} GB" if run else ""))
+    log(f"[dryrun] {len(ok)} cells traced, {len(skip)} skipped, {len(ran)} run, in {secs:.1f} s; "
+        f"roofline constants {rows[0].get('roofline', ok[0]['roofline'])}")
+    return dict(seconds=secs, table=table, skipped=[(r["arch"], r["shape"]) for r in skip])
+
+
+def run_mesh_engine(dev, *, batch: int = BATCH, kgs: int = KGS, nodes: int = NODES,
+                    ticks: int = MESH_TICKS) -> dict:
+    """Phase 12 (d): Real Job 3 at phase 3's deployment under
+    ``.jit(mesh=make_mesh((1,), ("nodes",)))`` against ``.jit()`` on the
+    card, on the same batches: sink outputs and every integer field equal,
+    floats of the states within JIT_RTOL, tuple counts and arrival
+    histograms equal, jit calls equal, both routing kernels on every hop."""
+    from repro_torch.engine import ExecutionConfig
+    from repro_torch.launch.mesh import make_mesh
+
+    batches = source_batches("airline", ticks, batch, SEED)
+    mesh = make_mesh((1,), ("nodes",), device=dev)
+    engines = {"jit": job3_engine(dev, batch=batch, config=ExecutionConfig.jit()),
+               "mesh": job3_engine(dev, batch=batch, config=ExecutionConfig.jit(mesh=mesh))}
+    secs = {}
+    for name, eng in engines.items():
+        t0 = time.perf_counter()
+        for k, v, ts in batches:
+            check(eng.push_source("airline", k, v, ts) == batch, f"{name}: a batch was cut")
+            eng.tick()
+        for _ in range(DRAIN_TICKS):
+            eng.tick()
+        secs[name] = time.perf_counter() - t0
+    a, b = engines["jit"], engines["mesh"]
+    ma, mb = a.metrics, b.metrics
+    check(mb.jit_calls > 0 and mb.jit_calls == ma.jit_calls, f"jit calls {mb.jit_calls} under the "
+          f"mesh, {ma.jit_calls} without")
+    shards = sorted(o.shards for o in b._jit._by_op.values())
+    check(shards == [0, 1, 1], f"the mesh engine's operators hold {shards} table shards")
+    for field in ("sink_tuples", "processed_tuples", "emitted_tuples", "cross_node_tuples"):
+        check(getattr(ma, field) == getattr(mb, field), f"{field} differs under the mesh")
+    check(ma.sink_outputs == mb.sink_outputs, f"the mesh engine's {len(mb.sink_outputs)} sink "
+          "outputs differ from .jit()'s")
+    check(np.array_equal(a.window.kg_arrivals, b.window.kg_arrivals),
+          "arrival histograms differ under the mesh")
+    check(states_close(synced_states(a), synced_states(b)),
+          f"key-group state differs under the mesh beyond rtol {JIT_RTOL}")
+    exact = state_bytes(a) == state_bytes(b)
+    kernels = {name: hop_kernels(eng) for name, eng in engines.items()}
+    check(kernels["jit"] == kernels["mesh"], "routed hops' kernel batches differ under the mesh")
+    log(f"[dryrun/mesh] Real Job 3 under .jit(mesh=1x1 'nodes') against .jit(), {ticks} x "
+        f"{batch} tuples + {DRAIN_TICKS} drain ticks: {mb.sink_tuples} sink tuples and "
+        f"{len(mb.sink_outputs)} sink outputs equal, states equal (bit-equal {exact}), "
+        f"{mb.jit_calls} jit calls each; {secs['mesh']:.2f} s vs {secs['jit']:.2f} s")
+    return dict(sink_tuples=mb.sink_tuples, jit_calls=mb.jit_calls, states_bit_equal=exact,
+                seconds=secs, hop_kernels=kernels["mesh"])
+
+
+def run_phase12(dev, drive, ep_spec=None) -> dict:
+    """Phase 12's (a), (b) and (d); with ``ep_spec`` (an ``LM_RUNS`` entry:
+    ``--dryrun``) also (c), on that model's weights loaded for it after (b)
+    and freed before (d)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out, counts = drive(("decode_attention",), run_dryrun, dev)
+    out["launches"] = {k: n for k, n in counts.items() if n}
+    if ep_spec is not None:
+        from repro_torch.models import init_params
+
+        cfg = lm_config(ep_spec["arch"], ep_spec["context"])
+        params = init_params(cfg, SEED, device=dev)
+        out["expert_parallel"] = ep_steps(dev, drive, cfg, params, ep_spec)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    routing = ("keygroup_partition", "radix_sort")
+    out["mesh_engine"], counts = drive(routing, run_mesh_engine, dev)
+    out["mesh_engine"]["launches"] = {name: counts[name] for name in routing}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[dryrun] phase 12 in {out['seconds']:.1f} s; launches {out['launches']}, mesh engine "
+        f"{out['mesh_engine']['launches']}")
+    return out
 
 
 # --------------------------------------------------------------------- phase 9
@@ -4765,6 +5036,17 @@ def main() -> int:
     def stamp(what: str) -> None:
         log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
 
+    if sys.argv[1:2] == ["--dryrun"]:
+        # Phase 12 alone, (c) on Moonlight's weights loaded for it.
+        try:
+            t0 = time.perf_counter()
+            log(f"[build] {_build.build()} in {time.perf_counter() - t0:.2f} s wall")
+            dry = run_phase12(dev, drive, next(s for s in LM_RUNS if s.get("expert_parallel")))
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"card": card, "dryrun": dry}, default=str))
+        return 0
     if sys.argv[1:2] == ["--train"]:
         # Phase 9 alone.
         try:
@@ -4858,12 +5140,17 @@ def main() -> int:
             stamp(f"LM phases of {spec['arch']}")
         train = run_train_phase(dev, drive)
         stamp("phase 9")
+        gc.collect()
+        torch.cuda.empty_cache()
+        dry = run_phase12(dev, drive)
+        dry["expert_parallel"] = lm[MOE_ARCH]["expert_parallel"]
+        stamp("phase 12")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[summary] engine {engine}; controller {controller}; real jobs {real_jobs}; "
         f"skew {skew}; superstep {superstep}; workers {workers}; "
-        f"lm {lm}; serve {served}; train {train}; "
+        f"lm {lm}; serve {served}; train {train}; dry run {dry}; "
         f"{time.perf_counter() - t_start:.1f} s total")
     for name in LM_KERNELS:
         kernels[name]["train_launches"] = dict(total=train["launches"][name],

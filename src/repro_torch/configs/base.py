@@ -174,6 +174,38 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
     return True, ""
 
 
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of this (arch, shape),
+    the reference's shapes and dtypes.  Nothing is allocated: the dry run
+    traces against these."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.is_encdec:
+            # Audio frontend stub: frame embeddings, then decoder tokens.
+            out = {
+                "encoder_embeds": spec((b, s, cfg.d_model), torch.bfloat16),
+                "tokens": spec((b, min(s, 448))),
+            }
+            if shape.kind == "train":
+                out["labels"] = spec((b, min(s, 448)))
+            return out
+        if cfg.decoder_only_inputs_embeds:
+            # VLM stub: patch embeddings folded into the embeds input.
+            out = {"inputs_embeds": spec((b, s, cfg.d_model), torch.bfloat16)}
+        else:
+            out = {"tokens": spec((b, s))}
+        if shape.kind == "train":
+            out["labels"] = spec((b, s))
+        return out
+    # decode: one new token against a seq_len-deep cache (the caller builds
+    # it with kvcache.cache_specs); here only the step inputs.
+    return {"tokens": spec((b, 1)), "positions": spec((b,))}
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------

@@ -27,8 +27,9 @@ Every preset routes through the card's kernels.  A :class:`CheckpointPolicy`
 adds periodic checkpoints (single-process engine or the multi-worker
 coordinator) and a :class:`SupervisionPolicy` worker supervision (heartbeat
 deadlines and respawn).  ``.jit(mesh=...)`` and ``.superstep(mesh=...)``
-raise :class:`NotImplementedError` naming ROADMAP.md queue 1, item 11 (mesh
-and dry-run tooling).
+run the compiled tier's run-sharded bodies over a one-axis mesh
+(:func:`repro_torch.launch.mesh.make_mesh`); the port holds the devices
+that are present, so on one card that axis has one shard.
 """
 
 from __future__ import annotations
@@ -40,14 +41,6 @@ from typing import Any, Optional
 #: Default capacity (bytes) of one shared-memory exchange lane — the
 #: documented ``ExecutionConfig.workers(n, shm=...)`` default.
 SHM_LANE_BYTES = 1 << 20
-
-
-def _no_mesh(preset: str, mesh: Any, mesh_axis: Optional[str]) -> None:
-    if mesh is not None or mesh_axis is not None:
-        raise NotImplementedError(
-            f"ExecutionConfig.{preset}(mesh=...) is not ported to repro_torch yet: "
-            "ROADMAP.md queue 1, item 11 (mesh and dry-run tooling)"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +130,10 @@ class ExecutionConfig:
     #: Whole-tick fusion of a linear ``jit_fusible`` chain on the device
     #: (the preset is :meth:`superstep`; requires ``use_fn_jit``).
     use_superstep: bool = False
+    #: The compiled tier's mesh (:class:`repro_torch.launch.mesh.Mesh`) and
+    #: the axis its runs shard over (default: the mesh's first axis).
+    jit_mesh: Any = None
+    jit_mesh_axis: Optional[str] = None
     #: Hot-key splitting (``split_degree >= 2`` enables
     #: ``Engine.split_keygroup``; 0 = disabled, no reserve slots).
     split_degree: int = 0
@@ -242,18 +239,17 @@ class ExecutionConfig:
 
     @classmethod
     def jit(cls, *, mesh: Any = None, mesh_axis: Optional[str] = None) -> "ExecutionConfig":
-        """``.typed()`` plus the compiled ``fn_jit`` tier, on one device."""
-        _no_mesh("jit", mesh, mesh_axis)
-        return cls(use_fn_jit=True)
+        """``.typed()`` plus the compiled ``fn_jit`` tier (run-sharded over
+        ``mesh``'s ``mesh_axis`` when a mesh is given)."""
+        return cls(use_fn_jit=True, jit_mesh=mesh, jit_mesh_axis=mesh_axis)
 
     @classmethod
     def superstep(
         cls, *, mesh: Any = None, mesh_axis: Optional[str] = None
     ) -> "ExecutionConfig":
-        """``.jit()`` plus whole-tick fusion into device programs, on one
-        device."""
-        _no_mesh("superstep", mesh, mesh_axis)
-        return cls(use_fn_jit=True, use_superstep=True)
+        """``.jit()`` plus whole-tick fusion into device programs (an engine
+        with a mesh never fuses: its ticks run the mesh's ``.jit()`` path)."""
+        return cls(use_fn_jit=True, use_superstep=True, jit_mesh=mesh, jit_mesh_axis=mesh_axis)
 
     @classmethod
     def workers(

@@ -1110,7 +1110,8 @@ class Engine:
             from repro_torch.engine.jitexec import JitRuntime
 
             jrt = self._jit = JitRuntime(
-                self.topology, self.store, self.metrics, self._kg_op, device=self.device
+                self.topology, self.store, self.metrics, self._kg_op, device=self.device,
+                mesh=self.config.jit_mesh, mesh_axis=self.config.jit_mesh_axis,
             )
         return jrt
 

@@ -170,11 +170,13 @@ class _Plan:
 def plan_chain(engine) -> Optional[_Plan]:
     """Static superstep eligibility; ``None`` → this engine never fuses.
 
-    The reference also refuses engines that collect its Pallas partition
-    statistics (``kernel_stats``) or run the jit tier over a mesh; the
-    port has neither switch (routing always runs through its kernels, and a
-    mesh raises at configuration).
+    An engine whose jit tier runs over a mesh never fuses, as in the
+    reference.  The reference also refuses engines that collect its Pallas
+    partition statistics (``kernel_stats``); the port has no such switch
+    (routing always runs through its kernels).
     """
+    if engine.config.jit_mesh is not None:
+        return None
     topo = engine.topology
     if not engine.use_schema:
         return None

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import DTYPE_CODES, check_qkv
 
@@ -150,6 +150,8 @@ def decode_attention(
     dev = q.device
     if dev.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, kv_len)
+    if dev.type == "meta":
+        return meta.decode(q, k_cache, v_cache)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):

@@ -10,7 +10,9 @@ kernel's 1/sqrt(padded) scale gives the softmax's 1/sqrt(hd); the padded
 columns of the output are P·0 and are cut off.  A CUDA tensor launches
 ``csrc/flash_attention.cu`` on the current stream, through the body that
 :func:`kernel_path` picks; a CPU tensor takes the plain version in
-:mod:`.ref`.  Nothing falls back: a launch that fails raises.
+:mod:`.ref`; a meta tensor (the dry run's trace) the kernel's meta arm
+(:mod:`repro_torch.kernels.meta`).  Nothing falls back: a launch that
+fails raises.
 
 Where a CUDA input requires grad (and grad mode is on), the launch runs
 inside :class:`FlashAttentionFn`, whose backward recomputes the plain
@@ -27,7 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -92,7 +94,10 @@ def padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
          window: int | None) -> torch.Tensor:
     """The kernel on CUDA tensors: allocate the output, launch, count.  No
-    autograd: the output has no ``grad_fn``."""
+    autograd: the output has no ``grad_fn``.  On meta tensors: the output's
+    shape, one op recorded for the dry run (:mod:`..meta`)."""
+    if q.is_meta:
+        return meta.flash(q, k, v, causal, window)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     hd = q.shape[-1]
@@ -154,7 +159,7 @@ def flash_attention(
     dev = q.device
     if dev.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window)

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,7 +97,10 @@ def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, path: str, *,
 
 def _run(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The kernel on CUDA tensors: allocate the output, launch, count.  No
-    autograd: the output has no ``grad_fn``."""
+    autograd: the output has no ``grad_fn``.  On meta tensors: the output's
+    shape, one op recorded for the dry run (:mod:`..meta`)."""
+    if x.is_meta:
+        return meta.moe(x, w)
     dev = x.device
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
@@ -138,7 +141,7 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dev = x.device
     if dev.type == "cpu":
         return moe_gemm_ref(x, w)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return MoeGemmFn.apply(x, w)

@@ -5,7 +5,9 @@ f32, and h0 (B,W) in any float dtype (the carry is f32), and returns
 ``h_t = a_t * h_{t-1} + b_t`` as (B,S,W) in a's dtype.  A CUDA tensor
 launches ``csrc/rglru_scan.cu`` on the current stream, through the body
 that :func:`kernel_path` picks; a CPU tensor takes the plain version in
-:mod:`.ref`.  Nothing falls back: a launch that fails raises.
+:mod:`.ref`; a meta tensor (the dry run's trace) the kernel's meta arm
+(:mod:`repro_torch.kernels.meta`).  Nothing falls back: a launch that
+fails raises.
 
 Where a CUDA input requires grad (and grad mode is on), the launch runs
 inside :class:`RgluScanFn`.  Its backward is one more launch of the same
@@ -24,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -101,7 +103,10 @@ def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> None:
 
 def _run(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """The kernel on CUDA tensors: allocate the output, launch, count.  No
-    autograd: the output has no ``grad_fn``."""
+    autograd: the output has no ``grad_fn``.  On meta tensors: the output's
+    shape, one op recorded for the dry run (:mod:`..meta`)."""
+    if a.is_meta:
+        return meta.rglru(a, b, h0)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
     out = torch.empty_like(a)
@@ -143,7 +148,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tens
     dev = a.device
     if dev.type == "cpu":
         return rglru_scan_ref(a, b, h0)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or h0.requires_grad):
         return RgluScanFn.apply(a, b, h0)

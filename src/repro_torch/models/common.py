@@ -1,9 +1,17 @@
-"""Shared model primitives: norms, RoPE variants, initializers and tree
-helpers for the parameter/cache trees (nested dicts and lists of tensors).
+"""Shared model primitives: norms, RoPE variants, initializers, tree
+helpers for the parameter/cache trees (nested dicts and lists of tensors),
+and the logical-axis sharding rules.
 
-Parameters carry *logical* axis names (``ParamSpec.logical``) as plain data,
-as in the reference; resolving them onto a device mesh waits for the mesh
-tooling (ROADMAP queue 1, item 11).
+Parameters carry *logical* axis names (``ParamSpec.logical``) as plain
+data, as in the reference; :func:`logical_spec` resolves them to mesh axes
+through a rules table (``DEFAULT_RULES``: tensor parallelism over
+``model``, FSDP over ``data``, the ``pod`` axis pure data parallelism).  A
+resolved spec is a tuple with one entry per dim: a mesh-axis name, a tuple
+of two or more names, or None (replicated), as jax's ``PartitionSpec``
+holds them.  The port runs on the devices that are
+present (:mod:`repro_torch.launch.mesh`): on one card every mesh axis has
+size 1, so a spec fixes the per-device shapes that
+:mod:`repro_torch.launch.sharding` reports and moves no data.
 """
 
 from __future__ import annotations
@@ -13,6 +21,125 @@ import math
 from typing import Any, Callable, Optional
 
 import torch
+
+# ---------------------------------------------------------------------------
+# Logical axis rules
+# ---------------------------------------------------------------------------
+
+# logical axis name → mesh axis (or None = replicated)
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),  # activation batch
+    "seq": None,  # sequence (sharded only under SP rules)
+    "embed": "data",  # model width — FSDP shard
+    "embed_nofsdp": None,
+    "vocab": "model",  # vocab — TP shard
+    "heads": "model",  # attention heads — TP shard
+    "kv_heads": None,  # kv heads (often < model axis; replicate by default)
+    "head_dim": None,
+    "ff": "model",  # MLP hidden — TP shard
+    "expert": "model",  # MoE experts — EP shard
+    "layers": None,  # stacked layer dim
+    "lru": "model",  # recurrence width — TP shard
+    "cache_batch": ("pod", "data"),
+    "cache_seq": None,
+    "cache_heads": "model",
+}
+
+# Sequence-parallel override used by long-context shapes.
+SP_RULES = dict(DEFAULT_RULES, seq="model", cache_seq="model", cache_heads=None)
+
+
+def mesh_axes(entry):
+    """One dim's entry of a spec as jax's ``PartitionSpec`` keeps it: a
+    one-name tuple becomes the name."""
+    if isinstance(entry, tuple) and len(entry) == 1:
+        return entry[0]
+    return entry
+
+
+def logical_spec(axes: tuple[Optional[str], ...], rules: Optional[dict] = None) -> tuple:
+    """The mesh axes of each dim named by ``axes`` under ``rules``."""
+    rules = rules or DEFAULT_RULES
+    return tuple(None if ax is None else mesh_axes(rules.get(ax)) for ax in axes)
+
+
+# ---------------------------------------------------------------------------
+# Activation rules and the current mesh
+# ---------------------------------------------------------------------------
+
+_ACTIVATION_RULES: list[Optional[dict]] = [None]
+_ACTIVATION_MESH: list[Any] = [None]
+
+
+class activation_rules:
+    """Context manager carrying the sharding rules and the mesh of a step.
+
+    The dry run (:mod:`repro_torch.launch.dryrun`) traces its steps inside
+    it, and MoE expert parallelism (:mod:`repro_torch.models.moe`) and
+    :func:`repro_torch.optim.compress.compressed_psum` read the mesh from
+    here, as in the reference.  Outside it :func:`constrain` is a no-op.
+    """
+
+    def __init__(self, rules: dict, mesh: Any = None):
+        self.rules = rules
+        self.mesh = mesh
+
+    def __enter__(self):
+        _ACTIVATION_RULES.append(self.rules)
+        _ACTIVATION_MESH.append(self.mesh)
+        return self
+
+    def __exit__(self, *exc):
+        _ACTIVATION_RULES.pop()
+        _ACTIVATION_MESH.pop()
+        return False
+
+
+def current_rules() -> Optional[dict]:
+    return _ACTIVATION_RULES[-1]
+
+
+def current_mesh():
+    return _ACTIVATION_MESH[-1]
+
+
+def constrain(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """``x`` pinned to the layout ``axes`` name under the current rules.
+
+    On a mesh whose axes all have size 1 (one card) every layout is the
+    whole tensor, so ``x`` comes back unchanged; a layout for more devices
+    than that raises, since the port holds no tensor across devices."""
+    rules = _ACTIVATION_RULES[-1]
+    if rules is None:
+        return x
+    if len(axes) != x.dim():
+        raise ValueError(f"{len(axes)} logical axes {axes} for a {x.dim()}-D tensor")
+    mesh = _ACTIVATION_MESH[-1]
+    if mesh is not None and any(n != 1 for n in mesh.shape.values()):
+        raise ValueError(f"mesh {dict(mesh.shape)} spans more than one device")
+    return x
+
+
+#: The dry run's loop folding (:mod:`repro_torch.launch.roofline`): a
+#: context-manager factory that weights the ops counted inside it by a trip
+#: count, or None outside a counting trace.
+_LOOP_FOLD: list[Optional[Callable]] = [None]
+
+
+def loop_steps(n: int):
+    """``range(n)`` for a Python loop whose body keeps its shapes.
+
+    Inside the dry run's counting trace it yields 0 once, with every op of
+    the body weighted by ``n``, as the reference's HLO analysis weights a
+    while body by its trip count: the caller repeats the one step's
+    per-step outputs to ``n``.  A body that reads its index ``t`` sees 0."""
+    fold = _LOOP_FOLD[-1]
+    if fold is None or n <= 1:
+        yield from range(n)
+        return
+    with fold(n):
+        yield 0
+
 
 # ---------------------------------------------------------------------------
 # Trees
@@ -98,6 +225,11 @@ class ParamSpec:
             )
             part.copy_(draw.mul_(std))
         return out
+
+
+def tree_logical(tree_specs: Any) -> Any:
+    """Map a tree of ParamSpec to its logical axes (for sharding resolution)."""
+    return tree_map(lambda s: s.logical, tree_specs, is_leaf=lambda x: isinstance(x, ParamSpec))
 
 
 def init_from_specs(

@@ -17,14 +17,15 @@ encoder-decoder model's ``cross`` leaves are ``(cycles, batch, enc_len,
 KV, hd)``: the same shapes a prefill with ``enc_len`` encoder frames
 builds (``Model.forward(build_cache=True, encoder_embeds=...)``).
 
-``init_cache`` materializes zeros for serving; the sharded ShapeDtypeStruct
-form and the logical axes wait for the mesh tooling (ROADMAP queue 1,
-item 11).
+``init_cache`` materializes zeros for serving, ``cache_specs`` the same
+tree as meta tensors (the dry run's stand-ins), and ``cache_logical`` the
+logical axes of every leaf, which :mod:`repro_torch.launch.sharding`
+resolves onto a mesh.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -81,16 +82,53 @@ def _block_cache_shapes(
     raise ValueError(kind)
 
 
-def init_cache(
-    cfg: ModelConfig, batch: int, capacity: int, enc_len: int = 0, *, device="cuda"
+_LOGICAL_BY_KIND: dict[str, dict[str, tuple]] = {
+    ATTN: {
+        "k": ("cache_batch", "cache_seq", "cache_heads", None),
+        "v": ("cache_batch", "cache_seq", "cache_heads", None),
+    },
+    LOCAL_ATTN: {
+        "k": ("cache_batch", "cache_seq", "cache_heads", None),
+        "v": ("cache_batch", "cache_seq", "cache_heads", None),
+    },
+    RGLRU: {"h": ("cache_batch", "lru"), "conv": ("cache_batch", None, "lru")},
+    MLSTM: {
+        "C": ("cache_batch", "heads", None, None),
+        "n": ("cache_batch", "heads", None),
+        "m": ("cache_batch", "heads"),
+    },
+    SLSTM: {
+        "c": ("cache_batch", None),
+        "n": ("cache_batch", None),
+        "h": ("cache_batch", None),
+        "m": ("cache_batch", None),
+    },
+}
+_LOGICAL_BY_KIND[ATTN_MOE] = _LOGICAL_BY_KIND[ATTN]
+
+
+def cache_logical(cfg: ModelConfig) -> dict:
+    """Logical-axis tree mirroring the cache_specs/init_cache structure."""
+    out: dict[str, Any] = {"scan": [], "rem": []}
+    for kind in cfg.pattern:
+        out["scan"].append({n: ("layers", *ax) for n, ax in _LOGICAL_BY_KIND[kind].items()})
+    for kind in cfg.remainder:
+        out["rem"].append(dict(_LOGICAL_BY_KIND[kind]))
+    if cfg.is_encdec:
+        out["cross"] = {
+            "k": ("layers", "cache_batch", "cache_seq", "cache_heads", None),
+            "v": ("layers", "cache_batch", "cache_seq", "cache_heads", None),
+        }
+    return out
+
+
+def _build(
+    cfg: ModelConfig,
+    batch: int,
+    capacity: int,
+    make: Callable[[tuple[int, ...], torch.dtype], torch.Tensor],
+    enc_len: int = 0,
 ) -> dict:
-    """Zero caches for ``batch`` slots of ``capacity`` positions (bf16 k/v,
-    as the reference hard-wires), on the card unless ``device="cpu"``."""
-    device = resolve_device(device)
-
-    def make(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
     cache: dict[str, Any] = {"scan": [], "rem": []}
     for kind in cfg.pattern:
         shapes = _block_cache_shapes(cfg, kind, batch, capacity)
@@ -108,6 +146,28 @@ def init_cache(
             "v": make((cfg.cycles, batch, enc_len, kv, hd), torch.bfloat16),
         }
     return cache
+
+
+def cache_specs(cfg: ModelConfig, batch: int, capacity: int, enc_len: int = 0) -> dict:
+    """The cache tree of :func:`init_cache` as meta tensors (no storage)."""
+    return _build(
+        cfg, batch, capacity,
+        lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta"),
+        enc_len=enc_len,
+    )
+
+
+def init_cache(
+    cfg: ModelConfig, batch: int, capacity: int, enc_len: int = 0, *, device="cuda"
+) -> dict:
+    """Zero caches for ``batch`` slots of ``capacity`` positions (bf16 k/v,
+    as the reference hard-wires), on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
+    return _build(
+        cfg, batch, capacity,
+        lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device),
+        enc_len=enc_len,
+    )
 
 
 def cache_capacity(cfg: ModelConfig, kind: str, capacity: int) -> int:

@@ -10,8 +10,10 @@ On a CUDA tensor, :func:`attention` runs the hand-written flash kernel
 (:mod:`repro_torch.kernels.decode_attention`), and :func:`cross_attention`
 (an encoder-decoder's cross sublayer) the one or the other by query
 length, at exactly the call sites where the reference calls their XLA
-counterparts.  On a CPU tensor all three keep the reference's own math
-(full or chunked attention), so the CPU tests compare like with like.
+counterparts.  A meta tensor (the dry run's trace) takes the same route,
+into the kernels' meta arms.  On a CPU tensor all three keep the
+reference's own math (full or chunked attention), so the CPU tests compare
+like with like.
 """
 
 from __future__ import annotations
@@ -222,7 +224,7 @@ def attention(
     window: Optional[int] = None,
     max_full_seq: int = FULL_ATTN_MAX_SEQ,
 ) -> torch.Tensor:
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         return flash_kernel(q, k, v, causal=causal, window=window)
     s = q.shape[1]
     if s <= max_full_seq or s % CHUNK_Q != 0 or k.shape[1] % CHUNK_KV != 0:
@@ -243,7 +245,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """
     if k.shape[1] == 0:
         return torch.zeros_like(q)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return full_attention(q, k, v, causal=False)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if q.shape[1] == 1 and not grad:
@@ -261,7 +263,7 @@ def decode_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """One-token decode against a (B,T,KV,hd) cache with per-batch lengths."""
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         if window is not None:
             raise NotImplementedError(
                 "windowed decode over a linear cache has no CUDA kernel: the decode "

@@ -14,18 +14,26 @@ folded into the capacity axis, (B, E, C, d) → (E, B·C, d), so one launch of
 each product serves all rows and every row's products are unchanged: 3
 launches per layer (gate, up, down) for the gated MLP kinds.
 
-Expert parallelism (the reference's ``shard_map`` over the ``model`` mesh
-axis) waits for the mesh tooling: every expert runs on the one device.
+Expert parallelism (:func:`_moe_expert_parallel`, the reference's
+``shard_map`` over the ``model`` mesh axis) is taken by the reference's
+rule, inside :class:`~repro_torch.models.common.activation_rules` whose
+rules put experts on ``model``.  The port runs on the devices that are
+present: on its 1×1 mesh the one shard holds experts [0, E), the ZeRO
+all-gather over ``data`` and the psum over ``model`` are over one shard
+each, and both paths run the same body (:func:`_moe_local`), through
+``moe_gemm``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gemm import moe_gemm
-from repro_torch.models.common import ParamSpec, norm_specs
+from repro_torch.models.common import ParamSpec, current_mesh, current_rules, norm_specs
 
 
 def moe_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
@@ -57,11 +65,12 @@ def capacity(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def _row_dispatch(
-    cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor, cap: int
+    cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor, cap: int, lo: int, e_local: int
 ) -> tuple[torch.Tensor, ...]:
-    """Each row's sort-based dispatch: (tok_slot, gate_slot, used), each
-    (B, E·cap), for slot e·cap + position of expert e's bucket, then the f32
-    router logits (B, S, E) and the chosen experts (B, S, k)."""
+    """Each row's sort-based dispatch to the experts [lo, lo + e_local):
+    (tok_slot, gate_slot, used), each (B, e_local·cap), for slot
+    (e - lo)·cap + position of expert e's bucket, then the f32 router
+    logits (B, S, E) and the chosen experts (B, S, k)."""
     moe = cfg.moe
     b, s, _ = x.shape
     e, k = moe.num_experts, moe.top_k
@@ -79,9 +88,11 @@ def _row_dispatch(
     # Position within the expert bucket (stable sort ⇒ earlier tokens win).
     pos = torch.arange(s * k, device=dev) - torch.searchsorted(se, se, side="left")
 
-    n_slots = e * cap
-    # Overflow writes go to a last slot past the end, which is cut off.
-    slot = torch.where(pos < cap, se * cap + pos, n_slots)
+    n_slots = e_local * cap
+    # Overflow and other shards' experts write to a last slot past the end,
+    # which is cut off.
+    local = (se >= lo) & (se < lo + e_local) & (pos < cap)
+    slot = torch.where(local, (se - lo) * cap + pos, n_slots)
 
     def scatter(src: torch.Tensor) -> torch.Tensor:
         buf = torch.zeros((b, n_slots + 1), dtype=src.dtype, device=dev)
@@ -92,14 +103,15 @@ def _row_dispatch(
 
 
 def _moe_local(
-    cfg: ModelConfig, p: dict, x: torch.Tensor
+    cfg: ModelConfig, p: dict, x: torch.Tensor, *, lo: int = 0, e_local: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """All experts on this device, the rows folded into the capacity axis.
-    Returns (out, router logits, chosen experts)."""
+    """The experts [lo, lo + e_local) (default all) on this device, whose
+    weights ``p`` holds, the rows folded into the capacity axis.  Returns
+    (this shard's part of the output, router logits, chosen experts)."""
     b, s, d = x.shape
-    e = cfg.moe.num_experts
+    e = cfg.moe.num_experts if e_local is None else e_local
     cap = capacity(cfg, s)
-    tok_slot, gate_slot, used, logits, chosen = _row_dispatch(cfg, x, p["router"], cap)
+    tok_slot, gate_slot, used, logits, chosen = _row_dispatch(cfg, x, p["router"], cap, lo, e)
     rows = torch.arange(b, device=x.device)[:, None]
 
     xin = x[rows, tok_slot] * used[..., None].to(x.dtype)  # (B, E·C, d)
@@ -120,12 +132,24 @@ def _moe_local(
 
 
 def _moe_expert_parallel(cfg: ModelConfig, p: dict, x: torch.Tensor, rules: dict):
-    """The reference's expert parallelism (a ``shard_map`` over the ``model``
-    mesh axis) is mesh code."""
-    raise NotImplementedError(
-        "MoE expert parallelism is not ported yet (ROADMAP queue 1, item 11: mesh and "
-        "dry-run tooling)"
-    )
+    """Expert parallelism over the current mesh's ``model`` axis, the
+    reference's layout: x split by ``rules["batch"]``, the router
+    replicated, expert weights EP over ``model`` and ZeRO over ``data``;
+    each shard all-gathers its experts over ``data``, dispatches every
+    token to its e_local = E / ep experts [lo, lo + e_local), and a psum
+    over ``model`` combines the shards.  This process holds one device, the
+    mesh's one shard: lo = 0, e_local = E, and the all-gather and the psum
+    are over one shard.  Returns (out, router logits, chosen experts)."""
+    mesh = current_mesh()
+    if math.prod(mesh.shape.values()) != 1:
+        raise ValueError(
+            f"expert parallelism over mesh {dict(mesh.shape)}: the port holds one device"
+        )
+    e_local = cfg.moe.num_experts // mesh.shape["model"]
+    lo = 0  # this shard's index on "model" × e_local
+    names = [n for n in ("w_gate", "w_up", "w_down") if n in p]
+    local = {**p, **{n: p[n][lo : lo + e_local] for n in names}}
+    return _moe_local(cfg, local, x, lo=lo, e_local=e_local)
 
 
 def moe_forward(
@@ -141,7 +165,19 @@ def moe_forward(
     expert with a scatter-add (``bincount`` would wait for the card)."""
     moe = cfg.moe
     assert moe is not None
-    out, logits, chosen = _moe_local(cfg, p, x)
+    rules = current_rules()
+    mesh = current_mesh()
+    use_ep = (
+        rules is not None
+        and rules.get("expert") == "model"
+        and mesh is not None
+        and "model" in mesh.shape
+        and moe.num_experts % mesh.shape["model"] == 0
+    )
+    if use_ep:
+        out, logits, chosen = _moe_expert_parallel(cfg, p, x, rules)
+    else:
+        out, logits, chosen = _moe_local(cfg, p, x)
     if return_router_stats:
         flat = chosen.reshape(-1)
         tokens_per_expert = torch.zeros(moe.num_experts, dtype=torch.int64, device=x.device)

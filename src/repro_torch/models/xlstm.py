@@ -50,7 +50,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamSpec, apply_norm, at_least_f32, norm_specs
+from repro_torch.models.common import (
+    ParamSpec,
+    apply_norm,
+    at_least_f32,
+    loop_steps,
+    norm_specs,
+)
 from repro_torch.models.layers import project_heads
 
 MLSTM_CHUNK = 256
@@ -160,7 +166,8 @@ def mlstm_chunk_parallel(
         c, n, m = state
     future = ~torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
     outs = []
-    for j in range(0, s, chunk):
+    for j in loop_steps(s // chunk):
+        j *= chunk
         qj, kj, vj = q[:, :, j : j + chunk], k[:, :, j : j + chunk], v[:, :, j : j + chunk]
         ij, fj = i_pre[:, :, j : j + chunk], log_f[:, :, j : j + chunk]
         csum_f = fj.cumsum(-1)  # (B,H,L): Σ log f within the chunk
@@ -191,6 +198,7 @@ def mlstm_chunk_parallel(
         c = c * w_c[..., None, None] + (vj * w_u[..., None]).transpose(-1, -2) @ kj
         n = n * w_c[..., None] + (w_u[..., None, :] @ kj)[..., 0, :]
         m = m_new
+    outs *= s // chunk // len(outs)  # one folded step stands for all (loop_steps)
     hs = torch.cat(outs, dim=2).transpose(1, 2).to(x.dtype)  # (B,S,H,hd)
     return hs, (c, n, m)
 
@@ -270,7 +278,7 @@ def slstm_block(
             )
         c_t, n_t, h_t, m_t = cache["c"], cache["n"], cache["h"], cache["m"]
     hs = []
-    for t in range(s):
+    for t in loop_steps(s):
         # einsum("bhk,hkl->bhl", h_prev, r_g) for the four gates at once.
         rec = torch.bmm(h_t.view(b, h, hd).transpose(0, 1), r)  # (H,B,4·hd)
         rec = rec.view(h, b, 4, hd).permute(1, 2, 0, 3).reshape(b, 4, d)
@@ -287,6 +295,7 @@ def slstm_block(
         h_t = (at_least_f32(o) * c_t / torch.clamp(n_t, min=1e-6)).to(x.dtype)
         m_t = m_new
         hs.append(h_t)
+    hs *= s // max(len(hs), 1)  # one folded step stands for all (loop_steps)
     out = x + torch.stack(hs, dim=1) @ p["w_proj"]
     if cache is None:
         return out, {"c": c_t, "n": n_t, "h": h_t, "m": m_t}

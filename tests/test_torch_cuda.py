@@ -1385,3 +1385,90 @@ def test_xlstm_and_whisper_smoke_on_card_match_cpu(cuda, arch):
     else:
         assert not any(counts.values())
     np.testing.assert_allclose(logits_g.cpu().numpy(), logits_c.numpy(), atol=5e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The mesh tooling on the card: expert parallelism, the mesh engine, the
+# kernels' meta arms and one dry-run cell run at SMOKE size
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "dbrx_132b"])
+def test_expert_parallel_step_on_card_matches_local(cuda, arch):
+    """A SMOKE MoE prefill and decode step under the model's own rules on
+    the card's 1×1 mesh: every MoE layer takes ``_moe_expert_parallel`` and
+    launches moe_gemm, and the logits equal the same steps without the
+    context (deterministic algorithms: one summation order in both)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import rules_for
+    from repro_torch.models import Model, init_params
+    from repro_torch.models.common import activation_rules
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = init_params(cfg, 0, device=cuda)
+    model = Model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(3))
+    toks = toks.to(cuda)
+    mesh = make_host_mesh(device=cuda)
+    assert mesh.device.type == "cuda"
+    rules = rules_for(cfg, SHAPES["prefill_32k"], mesh)
+
+    def steps():
+        logits, cache, _ = model.forward(params, tokens=toks, build_cache=True, cache_capacity=48)
+        dec, _ = model.decode_step(params, cache, toks[:, :1], torch.full((2,), 40, device=cuda))
+        return logits, dec
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.inference_mode():
+            want = steps()
+            reset_launch_counts()
+            with activation_rules(rules, mesh=mesh):
+                got = steps()
+            counts = launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert counts["moe_gemm"] > 0 and counts["flash_attention"] > 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=2e-4, rtol=2e-4)
+
+
+def test_mesh_engine_on_card_matches_jit(cuda):
+    """Real Job 3 under ``.jit(mesh=make_mesh((1,), ("nodes",)))`` on the
+    card against ``.jit()`` (chip_smoke.py phase 12 (d) at a small size)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    reset_launch_counts()
+    out = cs.run_mesh_engine(torch.device("cuda", 0), batch=4096, kgs=50, nodes=16)
+    counts = launch_counts()
+    assert counts["keygroup_partition"] > 0 and counts["radix_sort"] > 0
+    assert out["sink_tuples"] > 0 and out["jit_calls"] > 0
+
+
+def test_dryrun_cell_runs_on_card(cuda, tmp_path):
+    """One SMOKE decode cell traced on meta tensors and run on the card:
+    argument bytes allocated as counted, decode_attention launched, the
+    step no faster than its bound."""
+    import json
+
+    from repro_torch.launch import dryrun
+
+    out = tmp_path / "dry.json"
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--smoke", "--run", "--arch", "recurrentgemma_2b", "--shape", "decode_32k",
+                     "--out", str(out)])
+    assert e.value.code == 0
+    (row,) = json.loads(out.read_text())
+    run = row["run"]
+    assert run["allocated_bytes"] == row["memory_analysis"]["argument_bytes"]
+    assert run["launches_per_step"]["decode_attention"] == 1
+    assert run["measured_ms"] >= 1e3 * row["bound_s"] and run["peak_bytes"] > 0
+    assert row["roofline"]["card"]

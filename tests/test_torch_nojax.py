@@ -11,8 +11,11 @@ scenario, the ``Engine`` guard against ``.workers(n)``, fused ticks and a K-tick
 the fused superstep (``repro_torch.engine.superstep``), one SMOKE decode
 tick of the serve loop for a dense, a hybrid (RG-LRU + windowed attention),
 a MoE, the xLSTM and the encoder-decoder (Whisper) config, and one CPU train step (the optimizer, the token
-pipeline, the trainer's config) in a subprocess where ``import jax`` and
-``import repro`` fail.
+pipeline, the trainer's config), the mesh and dry-run tooling
+(``repro_torch.launch.{mesh,sharding,roofline,dryrun,perf_iter}``: one
+SMOKE cell traced and run, MoE expert parallelism and ``compressed_psum``
+on the 1×1 mesh, Real Job 3 under ``.jit(mesh=...)``) in a subprocess where
+``import jax`` and ``import repro`` fail.
 """
 
 import ast
@@ -213,6 +216,44 @@ with contextlib.redirect_stdout(printed):
         + ["--ckpt-dir", os.path.join(os.environ["CKDIR"], "train")])
 assert len(run["periods"]) == 2 and len(run["losses"]) == 4
 assert printed.getvalue().splitlines()[-1] == "[train] done"
+import json
+import repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.launch.roofline
+import repro_torch.launch.dryrun, repro_torch.launch.perf_iter
+from repro_torch.launch.mesh import make_host_mesh, make_mesh
+from repro_torch.models.common import activation_rules
+from repro_torch.optim.compress import compressed_psum
+out = os.path.join(os.environ["CKDIR"], "dryrun.json")
+with contextlib.redirect_stdout(io.StringIO()):
+    try:
+        repro_torch.launch.dryrun.main(["--device", "cpu", "--smoke", "--run", "--arch",
+                                        "recurrentgemma_2b", "--shape", "decode_32k",
+                                        "--out", out])
+    except SystemExit as e:
+        assert e.code == 0
+(row,) = json.load(open(out))
+assert row["status"] == "ok" and row["trace_flops_total"] > 0 and row["run"]["logits_finite"]
+mesh = make_host_mesh(device="cpu")
+moe_cfg = get_config("moonshot_v1_16b_a3b", smoke=True)
+rules = repro_torch.launch.sharding.rules_for(
+    moe_cfg, repro_torch.configs.base.SHAPES["prefill_32k"], mesh)
+from repro_torch.models import moe as port_moe
+moe_params = init_params(moe_cfg, 0, device="cpu")["blocks"][0]["moe"]
+moe_params = {k: v[0] for k, v in moe_params.items()}
+with activation_rules(rules, mesh=mesh):
+    y = port_moe.moe_forward(moe_cfg, moe_params, torch.randn(2, 8, moe_cfg.d_model,
+                                                              dtype=torch.bfloat16))
+    assert compressed_psum(torch.ones(4), "model").tolist() == [1.0] * 4
+assert y.shape == (2, 8, moe_cfg.d_model)
+sharded = Engine(real_job_3(keygroups_per_op=8), 3, service_rate=1e9, device="cpu",
+                 config=ExecutionConfig.jit(mesh=make_mesh((1,), ("nodes",), device="cpu")))
+feed = airline_stream(StreamSpec(rate=60.0, seed=2))
+for _ in range(4):
+    sharded.push_source("airline", *next(feed))
+    sharded.tick()
+for _ in range(4):
+    sharded.tick()
+sharded.end_period()
+assert sharded.metrics.sink_tuples == typed.metrics.sink_tuples and sharded.metrics.jit_calls > 0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK", eng.metrics.sink_tuples)

@@ -353,7 +353,44 @@ def test_load_balancing_loss_matches_reference():
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
 
 
-def test_expert_parallel_names_its_roadmap_item():
-    _, cfg = _configs("moonshot_v1_16b_a3b")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        moe._moe_expert_parallel(cfg, {}, torch.zeros(1, 2, cfg.d_model), {})
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_expert_parallel_on_one_device_matches_reference(arch, monkeypatch):
+    """Expert parallelism on the 1×1 mesh: the port's moe_forward under
+    ``activation_rules(rules_for(...), mesh=make_host_mesh())`` takes
+    ``_moe_expert_parallel`` (lo = 0, e_local = E), runs its products
+    through ``moe_gemm`` and matches the reference's ``moe_forward`` under a
+    1×1 jax mesh with its ``activation_rules`` (its ``shard_map`` path) at
+    the MoE tolerance, overflow included."""
+    from repro.configs.base import SHAPES as REF_SHAPES
+    from repro.launch.sharding import rules_for as ref_rules_for
+    from repro.models.common import activation_rules as ref_activation_rules
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import rules_for
+    from repro_torch.models.common import activation_rules
+
+    ref_cfg, cfg = _configs(arch)
+    ref_p, p = _moe_params(ref_cfg, seed=21)
+    x = _leaning_inputs(cfg, ref_p["router"], 3, 40, seed=22)
+    assert _overflow(cfg, ref_p["router"], x) > 0
+    ref_mesh = jax.make_mesh((1, 1), ("data", "model"), devices=jax.devices()[:1])
+    ref_rules = ref_rules_for(ref_cfg, REF_SHAPES["prefill_32k"], ref_mesh)
+    with ref_mesh, ref_activation_rules(ref_rules, mesh=ref_mesh):
+        want = ref_moe.moe_forward(ref_cfg, ref_p, jnp.asarray(x))
+    mesh = make_host_mesh(device="cpu")
+    rules = rules_for(cfg, SHAPES["prefill_32k"], mesh)
+    assert rules == ref_rules and rules["expert"] == "model"
+    calls, products = [], []
+    real = moe._moe_expert_parallel
+    monkeypatch.setattr(moe, "_moe_expert_parallel",
+                        lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(moe, "moe_gemm", lambda a, w: products.append(a.shape) or moe_gemm(a, w))
+    with activation_rules(rules, mesh=mesh):
+        got = moe.moe_forward(cfg, p, torch.from_numpy(x))
+    assert calls == [1]
+    assert len(products) == (3 if "w_gate" in p else 2)
+    assert products[0][0] == cfg.moe.num_experts  # e_local = E on one shard
+    _close(got, want)
+    # Outside the context the local path gives the same layer.
+    _close(moe.moe_forward(cfg, p, torch.from_numpy(x)), want)

@@ -233,9 +233,34 @@ def test_property_int8_compression_bounded_error(seed, scale):
     assert q.dtype == torch.int8
 
 
-def test_compressed_psum_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        compressed_psum(torch.zeros(4), "pod")
+@pytest.mark.parametrize("seed,scale", [(0, 1.0), (1, 3e-3), (2, 4e2)])
+def test_compressed_psum_matches_reference_on_one_device(seed, scale):
+    """The int8 all-reduce over a one-shard ``pod`` axis: bit-equal to the
+    reference's inside a ``shard_map`` on a one-device mesh; outside a mesh
+    context, or over an axis the mesh lacks, it raises."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.optim.compress import compressed_psum as ref_compressed_psum
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import activation_rules
+
+    x = np.random.default_rng(seed).normal(0, scale, 257).astype(np.float32)
+    ref_mesh = jax.make_mesh((1,), ("pod",), devices=jax.devices()[:1])
+    shard_map = getattr(jax, "shard_map", None)
+    if shard_map is None:  # jax < 0.6
+        from jax.experimental.shard_map import shard_map
+    want = jax.jit(shard_map(lambda a: ref_compressed_psum(a, "pod"), mesh=ref_mesh,
+                             in_specs=P(), out_specs=P()))(jnp.asarray(x))
+    mesh = make_mesh((1,), ("pod",), device="cpu")
+    with activation_rules({}, mesh=mesh):
+        got = compressed_psum(torch.from_numpy(x), "pod")
+        with pytest.raises(ValueError, match="no 'data'"):
+            compressed_psum(torch.from_numpy(x), "data")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="mesh"):
+        compressed_psum(torch.from_numpy(x), "pod")
 
 
 # ---------------------------------------------------------------------------
