@@ -134,15 +134,24 @@ _METRIC_SUM_FIELDS = (
     "host_device_copies",
     "host_device_bytes",
     "device_route_seconds",
+    # Host seconds at the engine's layer boundaries (EngineMetrics).
+    "admit_seconds",
+    "jit_seconds",
+    "jit_put_seconds",
+    "jit_call_seconds",
+    "jit_fetch_seconds",
+    "flush_seconds",
 )
 
-#: The port's per-operator routing counters (dicts keyed by operator id),
-#: summed key by key across workers.
+#: The port's per-operator counters (dicts keyed by operator id), summed
+#: key by key across workers.
 _METRIC_OP_FIELDS = (
     "routed_batches",
     "partition_kernel_batches",
     "sort_kernel_batches",
     "exchange_split_batches",
+    "route_seconds",
+    "op_seconds",
 )
 
 #: The routing kernels every worker loads (built before the fork).
@@ -228,6 +237,9 @@ class _ShardEngine(Engine):
         self.rng = worker_rng(self.seed, wid)
 
     def _dispatch_batch(self, dop, batch, src_kgs, src_nodes) -> None:
+        # Routing's first half here: counted as the hop's route_seconds, as
+        # the single-process engine counts its whole _route_batch.
+        t0 = time.perf_counter()
         keys, values, ts = batch
         # The first of the hop's two partitions (on the card when the keys
         # allow it): only the ids are needed, to split by owning worker.
@@ -250,6 +262,7 @@ class _ShardEngine(Engine):
                 self._xchg_out.setdefault(w, {}).setdefault(dop, []).append(
                     (sub, sk, sn)
                 )
+        m.route_seconds[dop] = m.route_seconds.get(dop, 0.0) + (time.perf_counter() - t0)
 
     def take_exchange(self):
         local, self._xchg_local = self._xchg_local, {}

@@ -34,6 +34,9 @@ does.  ``EngineMetrics.host_device_copies``/``host_device_bytes`` count
 every host↔device copy routing makes (the cost later slices cut), and the
 per-operator ``routed_batches``/``partition_kernel_batches``/
 ``sort_kernel_batches`` show which hops went through the kernels.
+Host seconds are counted at the engine's layer boundaries as well, and
+``Engine.spans`` records them as spans on request
+(:mod:`repro_torch.engine.tracing` names both).
 
 The compiled tier (``ExecutionConfig.jit()``: ``OperatorSpec.fn_jit`` +
 a declared ``StateSchema``) moves operator state to the card as well:
@@ -126,6 +129,19 @@ class EngineMetrics:
     # Host wall seconds of those device round trips (upload, kernels,
     # download — the downloads synchronize), to set against tick time.
     device_route_seconds: float = 0.0
+    # Host wall seconds at the engine's layer boundaries, each the sum of
+    # its spans' durations (repro_torch.engine.tracing names them) or, for
+    # admit_seconds and op_seconds, their self time.  route_seconds and
+    # op_seconds are per operator id; route_seconds holds
+    # device_route_seconds, and no other interval is counted twice.
+    admit_seconds: float = 0.0
+    route_seconds: dict = dataclasses.field(default_factory=dict)
+    op_seconds: dict = dataclasses.field(default_factory=dict)
+    jit_seconds: float = 0.0
+    jit_put_seconds: float = 0.0
+    jit_call_seconds: float = 0.0
+    jit_fetch_seconds: float = 0.0
+    flush_seconds: float = 0.0
     # Multi-worker shards only, per destination operator id: batches
     # partitioned a first time to split them by owning worker (each is
     # partitioned again when the merged batch routes, as in the reference),
@@ -140,9 +156,6 @@ class EngineMetrics:
     # the hottest key group's share of the period's arrivals.
     hot_keygroups: list = dataclasses.field(default_factory=list)
     max_kg_share: float = 0.0
-
-    def throughput(self) -> float:
-        return self.processed_tuples / max(self.ticks, 1)
 
 
 #: Size of the EngineMetrics.hot_keygroups top-k gauge.
@@ -257,6 +270,11 @@ class Engine:
         self.router = Router(g_eff, initial_alloc)
         self.window = SPLWindow(g_eff)
         self.metrics = EngineMetrics()
+        # Set to a list to record (name, start, end) spans on the
+        # perf_counter clock (repro_torch.engine.tracing); the caller owns
+        # and empties it.  None records none; the counters run either way.
+        self.spans: Optional[list] = None
+        self._op_names = [o.name for o in topology.operators]
         self.latency = LatencyTracker()
         self.backpressure = CreditController(num_nodes, high_wm=50 * service_rate)
         self.collect_sinks = collect_sinks
@@ -361,6 +379,7 @@ class Engine:
 
     def push_source(self, op: str | int, keys, values, ts) -> int:
         """Feed tuples into a source operator; returns tuples accepted."""
+        t0 = time.perf_counter()
         oid = self.topology._resolve(op)
         spec = self.topology.operators[oid]
         if not spec.is_source:
@@ -369,13 +388,16 @@ class Engine:
         n = min(len(keys), credits)
         if n < len(keys):
             self.metrics.dropped_credits += len(keys) - n
-        if n == 0:
-            return 0
-        self._admit_source(oid, keys, values, ts, n)
+        routed = self._admit_source(oid, keys, values, ts, n) if n else 0.0
+        t1 = time.perf_counter()
+        self.metrics.admit_seconds += t1 - t0 - routed
+        if self.spans is not None:
+            self.spans.append(("admit", t0, t1))
         return n
 
-    def _admit_source(self, oid: int, keys, values, ts, n: int) -> None:
-        """Convert and route ``n`` already-admitted source tuples.
+    def _admit_source(self, oid: int, keys, values, ts, n: int) -> float:
+        """Convert and route ``n`` already-admitted source tuples; returns
+        the routing's seconds.
 
         Split from :meth:`push_source` so the multi-worker runtime can admit
         coordinator-approved slices without re-running the credit gate
@@ -398,7 +420,7 @@ class Engine:
         else:
             batch = make_batch(keys[:n], values[:n], ts[:n])
         self.ingest_cursor += 1
-        self._route_batch(oid, batch, src_kgs=None, src_nodes=None)
+        return self._route_batch(oid, batch, src_kgs=None, src_nodes=None)
 
     # ----------------------------------------------------- device transfers
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -474,10 +496,17 @@ class Engine:
             self._upload(part), self._op_nkg[op], base=self._op_base[op]
         )
         kgs, hist = self._download(ids_dev), self._download(hist_dev)
+        self._device_routed(op, t0)
         m = self.metrics
-        m.device_route_seconds += time.perf_counter() - t0
         m.partition_kernel_batches[op] = m.partition_kernel_batches.get(op, 0) + 1
         return kgs, hist, ids_dev
+
+    def _device_routed(self, op: int, t0: float) -> None:
+        """Count one of routing's device round trips, begun at ``t0``."""
+        t1 = time.perf_counter()
+        self.metrics.device_route_seconds += t1 - t0
+        if self.spans is not None:
+            self.spans.append((f"route.device:{self._op_names[op]}", t0, t1))
 
     def _route_batch(
         self,
@@ -486,8 +515,9 @@ class Engine:
         *,
         src_kgs: Optional[np.ndarray],
         src_nodes: Optional[np.ndarray],
-    ) -> None:
-        """Partition a batch by the operator's key groups and enqueue.
+    ) -> float:
+        """Partition a batch by the operator's key groups and enqueue;
+        returns the seconds it took (``route_seconds``, span ``route:<op>``).
 
         One batched hash + one stable argsort; the sorted arrays are shared by
         every destination node's segment (runs are views, nothing is copied).
@@ -495,6 +525,16 @@ class Engine:
         source-feed batches) so send statistics and serialization charges are
         exact yet fully scattered.
         """
+        t0 = time.perf_counter()
+        self._route(op, batch, src_kgs, src_nodes)
+        t1 = time.perf_counter()
+        per_op = self.metrics.route_seconds
+        per_op[op] = per_op.get(op, 0.0) + (t1 - t0)
+        if self.spans is not None:
+            self.spans.append((f"route:{self._op_names[op]}", t0, t1))
+        return t1 - t0
+
+    def _route(self, op: int, batch: Batch, src_kgs, src_nodes) -> None:
         keys, values, ts = batch
         n = len(keys)
         if n == 0:
@@ -527,8 +567,10 @@ class Engine:
             kgs_dev = None
             local_of, glob_of, nkg = self._op_ext[op]
             local = local_of[kgs]
+        spans = self.spans
         tup_nodes = self.router.nodes_of(kgs)
         if src_kgs is not None:
+            t = time.perf_counter()
             window.record_send_pairs(src_kgs, kgs)
             cross = tup_nodes != src_nodes
             cs_src = src_kgs[cross]
@@ -544,6 +586,8 @@ class Engine:
                 window.kg_usage["network"] += both
             self.metrics.cross_node_tuples += n_cross
             self.metrics.intra_node_tuples += n - n_cross
+            if spans is not None:
+                spans.append((f"route.stats:{self._op_names[op]}", t, time.perf_counter()))
         # Sort tuples by the (destination node, key group) composite so each
         # node's work is ONE contiguous slice of the sorted arrays and runs
         # are adjacent within it — segments can then be drained with whole-
@@ -564,8 +608,19 @@ class Engine:
         if len(uniq) == 1:  # common fast case: no permutation needed
             skeys, svalues, sts = keys, values, ts
         else:
+            t = time.perf_counter()
             order = self._sort_composite(op, comp, kgs_dev, nkg, base)
             skeys, svalues, sts = keys[order], values[order], ts[order]
+            if spans is not None:
+                spans.append((f"route.gather:{self._op_names[op]}", t, time.perf_counter()))
+        t = time.perf_counter()
+        self._enqueue(op, skeys, svalues, sts, uniq, starts, ends, counts, run_nodes)
+        if spans is not None:
+            spans.append((f"route.enqueue:{self._op_names[op]}", t, time.perf_counter()))
+
+    def _enqueue(self, op, skeys, svalues, sts, uniq, starts, ends, counts, run_nodes) -> None:
+        """Push the routed batch's runs onto their nodes' queues; runs of
+        key groups whose migration is in flight divert to the router."""
         costs = counts * self._cost_per_tuple[op]
         # Runs for key groups whose migration is in flight divert to the
         # router's buffer; the rest flow to their nodes.  Removal can break
@@ -644,7 +699,6 @@ class Engine:
                 )
             )
 
-
     def _sort_composite(
         self,
         op: int,
@@ -667,8 +721,8 @@ class Engine:
         else:
             comp_dev = self._upload(comp.astype(np.int16 if small else np.int32))
         order = self._download(bucket_argsort(comp_dev, nb))
+        self._device_routed(op, t0)
         m = self.metrics
-        m.device_route_seconds += time.perf_counter() - t0
         m.sort_kernel_batches[op] = m.sort_kernel_batches.get(op, 0) + 1
         return order
 
@@ -715,6 +769,12 @@ class Engine:
         to run the whole tick on the device; any tick it cannot express
         falls back here after materializing its device-pending columns.
         """
+        t0 = time.perf_counter()
+        self._tick()
+        if self.spans is not None:
+            self.spans.append(("tick", t0, time.perf_counter()))
+
+    def _tick(self) -> None:
         if self.superstep:
             rt = self._superstep_rt()
             if rt.try_fused_tick():
@@ -845,10 +905,12 @@ class Engine:
                     else:
                         rel_s = [a - a0 for a in rs] if a0 else rs
                         rel_e = [z - a0 for z in re_] if a0 else re_
+                        t_op, jit0 = time.perf_counter(), metrics.jit_seconds
                         outputs, out_lens = fseg(
                             store, rk, rel_s, rel_e,
                             keys[a0:zn], values[a0:zn], ts[a0:zn],
                         )
+                        self._op_ran(op, t_op, jit0)
                         seg_calls += 1
                         seg_tuples += n_seg
                     if outputs is not None:
@@ -898,6 +960,7 @@ class Engine:
                     emit = plist.append
                 else:
                     emit = None
+                t_op, jit0 = time.perf_counter(), metrics.jit_seconds
                 for kg, a, z in zip(kgs[cur:], starts[cur:], ends[cur:]):
                     k, v, t = keys[a:z], values[a:z], ts[a:z]
                     processed += z - a
@@ -944,10 +1007,13 @@ class Engine:
                                     pending[dop].append(item)
                                 except KeyError:
                                     pending[dop] = [item]
+                if fn is not None:
+                    self._op_ran(op, t_op, jit0)
                 segs.popleft()
                 if budget <= 0:
                     break
                 continue
+            t_op, jit0 = time.perf_counter(), metrics.jit_seconds
             for kg, a, z, c in zip(kgs[cur:], starts[cur:], ends[cur:], costs[cur:]):
                 cur += 1
                 budget -= c
@@ -997,6 +1063,8 @@ class Engine:
                                 pending[dop] = [item]
                 if budget <= 0:
                     break
+            if fn is not None:
+                self._op_ran(op, t_op, jit0)
             if cur < nruns:
                 seg[_S_CUR] = cur
                 break
@@ -1007,6 +1075,16 @@ class Engine:
         metrics.sink_tuples += sink_n
         metrics.seg_calls += seg_calls
         metrics.seg_tuples += seg_tuples
+
+    def _op_ran(self, op: int, t0: float, jit0: float) -> None:
+        """Count an operator body's run begun at ``t0``, less the compiled
+        tier's flushes it forced (``jit_seconds`` read ``jit0`` at ``t0``)."""
+        t1 = time.perf_counter()
+        m = self.metrics
+        per_op = m.op_seconds
+        per_op[op] = per_op.get(op, 0.0) + (t1 - t0) - (m.jit_seconds - jit0)
+        if self.spans is not None:
+            self.spans.append((f"op:{self._op_names[op]}", t0, t1))
 
     def _jit_fallback(self, kg: int) -> None:
         """Before a per-run ``fn`` on a jit-tier operator's key group: run
@@ -1027,6 +1105,7 @@ class Engine:
         ``_out_pending`` / ``sink_outputs`` — output order is therefore
         exactly what per-segment inline execution would have produced.
         """
+        t0 = time.perf_counter()
         batch, self._jit_batch = self._jit_batch, []
         by_op: dict[int, list] = {}
         for entry in batch:
@@ -1088,6 +1167,10 @@ class Engine:
                         lens = np.asarray(out_lens, dtype=np.int64)
                     kg_arr = np.repeat(np.asarray(rk, dtype=np.int64), lens)
                     cell.append((outputs, kg_arr, node))
+        t1 = time.perf_counter()
+        metrics.jit_seconds += t1 - t0
+        if self.spans is not None:
+            self.spans.append(("jit", t0, t1))
 
     def _expand_sink_cells(self) -> None:
         """Flatten this tick's sink placeholder cells in place (cells were
@@ -1112,6 +1195,7 @@ class Engine:
             jrt = self._jit = JitRuntime(
                 self.topology, self.store, self.metrics, self._kg_op, device=self.device,
                 mesh=self.config.jit_mesh, mesh_axis=self.config.jit_mesh_axis,
+                engine=self,
             )
         return jrt
 
@@ -1196,7 +1280,9 @@ class Engine:
         pending, self._out_pending = self._out_pending, {}
         op_schema = self._op_schema
         jit_on = self._jit_on
+        metrics, spans = self.metrics, self.spans
         for dop in sorted(pending):
+            t0 = time.perf_counter()
             items = pending[dop]
             if jit_on:
                 # Expand jit placeholder cells (a cell is a list holding the
@@ -1233,6 +1319,10 @@ class Engine:
                 else:
                     src_kgs = np.repeat(np.fromiter(kg_t, np.int64, count=m), lens)
                 src_nodes = np.repeat(np.fromiter(nd_t, np.int64, count=m), lens)
+            t1 = time.perf_counter()
+            metrics.flush_seconds += t1 - t0
+            if spans is not None:
+                spans.append((f"flush:{self._op_names[dop]}", t0, t1))
             self._dispatch_batch(dop, batch, src_kgs, src_nodes)
 
     def _dispatch_batch(self, dop, batch, src_kgs, src_nodes) -> None:

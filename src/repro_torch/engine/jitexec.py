@@ -14,7 +14,9 @@ runtime
   buckets on the host, uploads every column once (pinned, asynchronous on
   the card), runs the body eagerly on the device, and reads back the
   tables' used counts and the outputs in **one** synchronization per call
-  (``EngineMetrics.jit_host_syncs``),
+  (``EngineMetrics.jit_host_syncs``), timing each call's put, call and
+  fetch (``jit_put_seconds``, ``jit_call_seconds``, ``jit_fetch_seconds``,
+  and the owning engine's spans: :mod:`repro_torch.engine.tracing`),
 * counts the first call of each ``(tuple bucket, run bucket, table
   capacities)`` key per operator in ``EngineMetrics.jit_compiles`` and its
   time in :attr:`JitRuntime.compile_seconds` — where the reference counts a
@@ -501,6 +503,7 @@ class JitRuntime:
         device: torch.device,
         mesh=None,
         mesh_axis: Optional[str] = None,
+        engine=None,
     ) -> None:
         # Shards of the mesh axis the runs split over (0: no mesh).
         shards = 0
@@ -511,6 +514,7 @@ class JitRuntime:
         self._shards = shards
         self._store = store
         self._metrics = metrics
+        self._engine = engine  # whose ``spans`` the phases of a call go to
         self._kg_op = kg_op
         self.device = device
         self._pin = device.type == "cuda"
@@ -553,6 +557,19 @@ class JitRuntime:
             torch.cuda.current_stream(self.device).synchronize()
         return [h.numpy() for h in host]
 
+    def _timed(self, phase: str, ost: _OpState, t0: float) -> float:
+        """Add the seconds since ``t0`` to ``jit_<phase>_seconds`` and record
+        the span ``jit.<phase>:<op>`` when the engine keeps spans; returns
+        the clock's reading."""
+        t1 = time.perf_counter()
+        m = self._metrics
+        name = f"jit_{phase}_seconds"
+        setattr(m, name, getattr(m, name) + (t1 - t0))
+        eng = self._engine
+        if eng is not None and eng.spans is not None:
+            eng.spans.append((f"jit.{phase}:{ost.spec.name}", t0, t1))
+        return t1
+
     # ------------------------------------------------------------ execution
     def execute(self, op, kgs, starts, ends, keys, values, ts):
         """Run one contiguous (node, operator) segment through the jit tier.
@@ -589,11 +606,15 @@ class JitRuntime:
         rb = _bucket(r, _MIN_RUN_BUCKET)
         if self._shards:
             rb = _bucket(rb, self._shards)
+        # The put phase: the pushes of dict-authoritative state, the padding
+        # and the uploads, up to the body's call.
+        t_put = time.perf_counter()
         lkgs = np.asarray(kgs, dtype=np.int64) - ost.base
         if ost.fields:
             self._prepare_state(ost, lkgs, n)
         if ost.shards:
-            return self._execute_sharded_tables(ost, lkgs, starts, ends, keys, values, ts, n, r)
+            return self._execute_sharded_tables(ost, lkgs, starts, ends, keys, values, ts, n, r,
+                                                t_put)
         put = self._put
         kg_pad = put(lkgs, rb, ost.nkg)
         s_pad = put(np.asarray(starts, dtype=np.int64), rb, n)
@@ -613,7 +634,7 @@ class JitRuntime:
         use_shard = self._shards > 0 and not ost.has_tables and len(set(kgs)) == r
         key = (nb, rb, tuple(sorted(ost.caps.items())), use_shard)
         first = self._first_call(ost, key)
-        t0 = time.perf_counter()
+        t0 = self._timed("put", ost, t_put)
         if use_shard:
             state_new, outputs, out_counts = run_sharded(
                 ost.spec.fn_jit, self._shards, ost.cols, kg_pad, s_pad, e_pad, key_pad, v_arg,
@@ -625,6 +646,7 @@ class JitRuntime:
             )
         if first:
             self._compiled(t0)
+        self._timed("call", ost, t0)
         return self._finish(ost, lkgs, n, r, state_new, outputs, out_counts)
 
     def _finish(self, ost, lkgs, n, r, state_new, outputs, out_counts, perm=None):
@@ -649,7 +671,9 @@ class JitRuntime:
             reads += [ok, ot, *ov_cols]
             if out_counts is not None:
                 reads.append(out_counts)
+        t0 = time.perf_counter()
         host = self._fetch(reads)
+        self._timed("fetch", ost, t0)
         for i, name in enumerate(tables):
             ost.cnt_host[name] = host[i].astype(np.int64) if ost.shards else int(host[i])
         ost.col_auth[lkgs] = True
@@ -691,7 +715,7 @@ class JitRuntime:
                 torch.cuda.synchronize(self.device)
         self.compile_seconds += time.perf_counter() - t0
 
-    def _execute_sharded_tables(self, ost, lkgs, starts, ends, keys, values, ts, n, r):
+    def _execute_sharded_tables(self, ost, lkgs, starts, ends, keys, values, ts, n, r, t_put):
         """Key-group-sharded execution of a keyed-table operator.
 
         The host lays the call out shard-major, as the reference does: runs
@@ -744,11 +768,12 @@ class JitRuntime:
                 put(np.asarray(ts, dtype=np.float64)[perm], nb))
         table_names = tuple(sorted(f.name for f in ost.fields if f.kind == "table"))
         first = self._first_call(ost, (nb, rbs, tuple(sorted(ost.caps.items())), "shard_tab"))
-        t0 = time.perf_counter()
+        t0 = self._timed("put", ost, t_put)
         state_new, outputs, out_counts = run_sharded(ost.spec.fn_jit, d, ost.cols, *args,
                                                      table_names=table_names)
         if first:
             self._compiled(t0)
+        self._timed("call", ost, t0)
         return self._finish(ost, lkgs, n, r, state_new, outputs, out_counts, perm=perm)
 
     # ----------------------------------------------------- state coherence
