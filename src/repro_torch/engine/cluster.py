@@ -141,6 +141,9 @@ _METRIC_SUM_FIELDS = (
     "jit_call_seconds",
     "jit_fetch_seconds",
     "flush_seconds",
+    "gather_seconds",
+    "gather_view_columns",
+    "gather_object_columns",
 )
 
 #: The port's per-operator counters (dicts keyed by operator id), summed

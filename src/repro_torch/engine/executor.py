@@ -78,6 +78,7 @@ from repro_torch.device import declared_sync, resolve_device
 from repro_torch.engine import serde
 from repro_torch.engine.backpressure import CreditController, LatencyTracker
 from repro_torch.engine.config import ExecutionConfig
+from repro_torch.engine.permute import permute_columns, takes_view
 from repro_torch.engine.router import Router, concat_batches
 from repro_torch.engine.state import KeyedStore
 from repro_torch.engine.topology import (
@@ -133,7 +134,8 @@ class EngineMetrics:
     # its spans' durations (repro_torch.engine.tracing names them) or, for
     # admit_seconds and op_seconds, their self time.  route_seconds and
     # op_seconds are per operator id; route_seconds holds
-    # device_route_seconds, and no other interval is counted twice.
+    # device_route_seconds and gather_seconds, and no other interval is
+    # counted twice.
     admit_seconds: float = 0.0
     route_seconds: dict = dataclasses.field(default_factory=dict)
     op_seconds: dict = dataclasses.field(default_factory=dict)
@@ -142,6 +144,13 @@ class EngineMetrics:
     jit_call_seconds: float = 0.0
     jit_fetch_seconds: float = 0.0
     flush_seconds: float = 0.0
+    # Routing's gather after the composite sort: its host seconds (the
+    # route.gather spans' self time, without their device round trip), and
+    # the columns it took through a fixed-width view or by fancy indexing
+    # (object dtype or strided; repro_torch.engine.permute).
+    gather_seconds: float = 0.0
+    gather_view_columns: int = 0
+    gather_object_columns: int = 0
     # Multi-worker shards only, per destination operator id: batches
     # partitioned a first time to split them by owning worker (each is
     # partitioned again when the merged batch routes, as in the reference),
@@ -609,10 +618,17 @@ class Engine:
             skeys, svalues, sts = keys, values, ts
         else:
             t = time.perf_counter()
+            dev0 = m.device_route_seconds
             order = self._sort_composite(op, comp, kgs_dev, nkg, base)
-            skeys, svalues, sts = keys[order], values[order], ts[order]
+            cols = (keys, values, ts)
+            skeys, svalues, sts = permute_columns(order, *cols)
+            t1 = time.perf_counter()
+            m.gather_seconds += t1 - t - (m.device_route_seconds - dev0)
+            n_view = sum(map(takes_view, cols))
+            m.gather_view_columns += n_view
+            m.gather_object_columns += len(cols) - n_view
             if spans is not None:
-                spans.append((f"route.gather:{self._op_names[op]}", t, time.perf_counter()))
+                spans.append((f"route.gather:{self._op_names[op]}", t, t1))
         t = time.perf_counter()
         self._enqueue(op, skeys, svalues, sts, uniq, starts, ends, counts, run_nodes)
         if spans is not None:

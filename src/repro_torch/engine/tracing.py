@@ -18,6 +18,7 @@ span                   interval (counter)
                        download (``device_route_seconds``)
 ``route.stats:<op>``   send pairs and cross-node usage
 ``route.gather:<op>``  the composite sort and the gather by its order
+                       (``gather_seconds``: its self time, the gather)
 ``route.enqueue:<op>`` the runs pushed onto the nodes' queues
 ``op:<op>``            an operator body: an ``fn_seg`` call, or a per-run
                        ``fn`` loop over a segment (``op_seconds[op]``: its
@@ -36,7 +37,7 @@ span                   interval (counter)
 Spans of one thread nest by containment: a span's parent is the smallest
 span that encloses it, and the top-level spans are ``tick`` and
 ``admit``.  No counter holds another's interval, except ``route_seconds``,
-which holds ``device_route_seconds``.
+which holds ``device_route_seconds`` and ``gather_seconds``.
 """
 
 from __future__ import annotations

@@ -114,6 +114,7 @@ def test_counters_equal_their_spans(name, service_rate):
     for f in ("jit", "jit.put", "jit.call", "jit.fetch", "flush"):
         assert getattr(m, f.replace(".", "_") + "_seconds") == _approx(_dur(_named(spans, f)))
     assert m.device_route_seconds == _approx(_dur(_named(spans, "route.device")))
+    assert m.gather_seconds == _approx(self_time("route.gather"))
     for op, secs in m.route_seconds.items():
         assert secs == _approx(_dur(_named(spans, f"route:{names[op]}")))
     for op, secs in m.op_seconds.items():
