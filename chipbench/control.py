@@ -5,8 +5,9 @@ the same comparison as the program.
     python chipbench/control.py --workload <cell> --seeds 1,2,3 --batches N
 
 The stream is the cell's own, from each seed, at the size a run admits: the
-mix's warm-up, then ``--batches`` whole batches (as many as a run's window
-takes).  The step
+mix's warm-up (its batches, or its periods' batches under the controller),
+then ``--batches`` whole batches (as many as a run's window takes), from the
+mix's initial allocation.  The step
 below: float32 sums where the configuration states float64 (the reference's
 ``dtype``); where it states no precision, a broken guarantee (the
 reference's ``redeliver``: each batch's first tuple delivered twice).
@@ -34,8 +35,10 @@ def control_kwargs(config: dict) -> dict:
 def admissions(cell, batches: int) -> list[tuple[int, int]]:
     """The stream ranges a run of the cell admits, in order: the warm-up's
     batches, then ``batches`` more."""
+    from chipbench.harness import warmup_batches
+
     b = cell.mix["batch"]
-    return [(i * b, (i + 1) * b) for i in range(cell.mix["warmup_batches"] + batches)]
+    return [(i * b, (i + 1) * b) for i in range(warmup_batches(cell) + batches)]
 
 
 def run_control(cell, seed: int, ranges) -> list:

@@ -7,7 +7,9 @@ metric is data found by name from the cell's entry in ``BENCHMARK.json``:
 its reference's limits), ``chipbench/traffic/<mix>.json`` (the loop, its
 batch, the initial allocation), ``chipbench/metrics/<metric>.py`` (a reader
 of the run's record) and ``chipbench/reference/<job>.py`` (the plain
-reference).  One loop exists, the closed one; everything else is read.
+reference).  Two loops exist: the closed one, and the controlled one, which
+admits the closed loop's batches inside the program's controller periods
+(the configuration's ``controller`` block); everything else is read.
 """
 
 from __future__ import annotations
@@ -76,11 +78,25 @@ def _call(dotted: str):
 
 
 def initial_alloc(kind: str, op_kgs: list[int], nodes: int, seed: int) -> np.ndarray:
-    """``seeded``: every key group on a node drawn from the seed."""
+    """``seeded``: every key group on a node drawn from the seed.
+    ``anti_collocated``: operator ``op``'s key groups dealt round robin over
+    the nodes from the offset ``op * (nodes // 2 + 1)``, so neighbouring
+    operators' key groups of one index sit on different nodes."""
     if kind == "seeded":
         rng = np.random.default_rng([seed, 7])
         return rng.integers(0, nodes, size=sum(op_kgs)).astype(np.int64)
+    if kind == "anti_collocated":
+        return np.concatenate([(np.arange(n) + op * (nodes // 2 + 1)) % nodes
+                               for op, n in enumerate(op_kgs)]).astype(np.int64)
     raise ValueError(f"unknown initial allocation {kind!r}")
+
+
+def warmup_batches(cell: Cell) -> int:
+    """The batches a run of ``cell`` admits before its window."""
+    mix = cell.mix
+    if mix["loop"] == "controlled":
+        return mix["warmup_periods"] * cell.config["controller"]["ticks_per_period"]
+    return mix["warmup_batches"]
 
 
 class Run:
@@ -124,16 +140,50 @@ class Run:
         self.stream_pos = 0  # next stream tuple
         self.spans = Spans()
         self.captured = np.zeros(self.topology.num_keygroups, dtype=np.int64)
+        self.folds: list[tuple[float, float]] = []  # each fold's (max node load, distance)
         eng = self.engine
         end_period = eng.end_period
 
         def capturing_end_period():
             self.captured += eng.window.kg_arrivals[: len(self.captured)].astype(np.int64)
-            return end_period()
+            state = end_period()
+            self.folds.append((float(state.node_loads()[state.alive].max()),
+                               state.load_distance()))
+            return state
 
         eng.end_period = capturing_end_period
         for attr in ("push_source", "tick"):
             self.spans.wrap(eng, attr, attr)
+        self.controller = None
+        self.unwrap: list = []  # what puts the program's module functions back
+        self.longest_period = 0.0
+        if mix["loop"] == "controlled":
+            self.controller = self._controller(cfg["controller"], mix["batch"])
+
+    def _controller(self, block: dict, batch: int):
+        """The program's ``Controller`` over the engine, configured by the
+        ``controller`` block (``ControllerConfig``'s fields, and under
+        ``framework`` ``AdaptationFramework``'s, ``albic_params`` as
+        ``AlbicParams``), fed one whole batch a tick.  The controller's own
+        ``end_period`` calls go through the capturing wrapper above.  Every
+        MILP solve, ALBIC's back-offs among them, is a ``solve`` span: the
+        program's ``solve_allocation`` wrapped where the allocators call it,
+        until the run puts them back."""
+        from repro_torch.core import AdaptationFramework, AlbicParams
+        from repro_torch.engine import Controller, ControllerConfig
+
+        fw = dict(block["framework"])
+        if "albic_params" in fw:
+            fw["albic_params"] = AlbicParams(**fw["albic_params"])
+        framework = AdaptationFramework(**fw)
+        ctl_cfg = ControllerConfig(**{k: v for k, v in block.items() if k != "framework"})
+        self.spans.wrap(framework, "adapt", "adapt")
+        self.spans.wrap(self.engine, "end_period", "end_period")
+        for mod in ("repro_torch.core.albic", "repro_torch.core.framework"):
+            self.unwrap.append(self.spans.wrap(importlib.import_module(mod),
+                                               "solve_allocation", "solve"))
+        return Controller(self.engine, framework, ctl_cfg,
+                          feeder=lambda engine, tick: self.admit(batch))
 
     # ------------------------------------------------------------ admission
     def admit(self, n: int) -> int:
@@ -185,6 +235,33 @@ class Run:
         self.sync()
         return t0, time.perf_counter()
 
+    def controlled(self, periods: int | None, seconds: float | None, *,
+                   drain: bool) -> tuple[float, float]:
+        """Whole controller periods (``ticks_per_period`` ticks of one batch
+        each, the fold, the adaptation and its migrations): ``periods`` of
+        them, or those that fit into ``seconds``.  A period starts only if
+        the time so far, the longest period yet (the last warm-up period's
+        to begin with) and the drain ticks at that period's pace per tick
+        fit; the first always starts.  Then, with ``drain``, the drain
+        ticks.  Returns the loop's (start, end) on the host clock, the end
+        after a device synchronization."""
+        ctl = self.controller
+        drain_ticks = self.cell.config["drain_ticks"] if drain else 0
+        reserve = 1.0 + drain_ticks / ctl.config.ticks_per_period
+        t0 = time.perf_counter()
+        i = 0
+        while (i < periods) if seconds is None else (
+                i == 0 or time.perf_counter() - t0 + self.longest_period * reserve <= seconds):
+            p0 = time.perf_counter()
+            ctl.period()
+            last = time.perf_counter() - p0
+            self.longest_period = last if seconds is None else max(self.longest_period, last)
+            i += 1
+        for _ in range(drain_ticks):
+            self.engine.tick()
+        self.sync()
+        return t0, time.perf_counter()
+
     # --------------------------------------------------------------- output
     def program_result(self) -> dict:
         """What the program produced, for the reference to judge: the final
@@ -221,25 +298,41 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
     import torch
 
     cfg, mix = cell.config, cell.mix
-    run = Run(cell, seed, device, log=log)
-    if mix["loop"] != "closed":
+    if mix["loop"] not in ("closed", "controlled"):
         raise ValueError(f"unknown loop {mix['loop']!r}")
-    # Set-up: warm every shape the window will use.
-    run.closed(mix["warmup_batches"], None)
+    run = Run(cell, seed, device, log=log)
+    ctl = run.controller
+    # Set-up: warm every shape the window will use; under the controller,
+    # whole periods, at least one of them adapted (the solver, the
+    # migrations, the compiled tier's eviction and re-push).
+    if ctl is None:
+        run.closed(mix["warmup_batches"], None)
+    else:
+        if mix["warmup_periods"] <= ctl.config.warmup_periods:
+            raise ValueError("the warm-up has to run at least one adapted period")
+        run.controlled(mix["warmup_periods"], None, drain=False)
     setup_s = time.perf_counter() - t_start
     before = run.counters()
+    periods0 = len(ctl.history) if ctl is not None else 0
     offered0, admitted0 = run.offered, sum(b - a for a, b in run.admissions)
     tracer = DeviceTrace() if trace and run.cuda else None
     run.spans.on = trace
+    if trace:
+        run.engine.spans = []
     if tracer is not None:
         tracer.__enter__()
     try:
-        t0, t1 = run.closed(None, seconds)
+        if ctl is None:
+            t0, t1 = run.closed(None, seconds)
+        else:
+            t0, t1 = run.controlled(None, seconds, drain=True)
     finally:
         t_stop = time.perf_counter()
         if tracer is not None:
             tracer.__exit__(None, None, None)
     run.spans.on = False
+    program_spans = run.engine.spans or []
+    run.engine.spans = None
     t_read = time.perf_counter()
     device_events = tracer.events() if tracer is not None else None
     if tracer is not None:
@@ -250,6 +343,7 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
     window_s = t1 - t0
     admitted = sum(b - a for a, b in run.admissions) - admitted0
     offered = run.offered - offered0
+    history = [dataclasses.asdict(m) for m in ctl.history[periods0:]] if ctl is not None else []
     record = {
         "window_s": window_s,
         "window": (t0, t1),
@@ -260,6 +354,7 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
         "nkg": dict(enumerate(run.op_kgs)),
         "spans": list(run.spans.items),
         "device": device_events,
+        "history": history,  # the controller's periods in the window
     }
     for f, v in after.items():
         if isinstance(v, dict):  # per operator
@@ -269,7 +364,8 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
     arr = after["arrivals"] - before["arrivals"]
     record["op_tuples"] = {op: int(arr[base[op]: base[op + 1]].sum())
                            for op in range(len(run.op_kgs))}
-    out = {"attempted": offered, "failed": offered - admitted}
+    out = {"attempted": offered, "failed": offered - admitted,
+           "ticks": record["delta"]["ticks"], "history": history}
     metrics = {}
     lines = []
     if trace:
@@ -282,8 +378,30 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
             busy = stats.busy_seconds([(s, e) for _, s, e in dev_iv], t0, t1)
             out["busy_s"] = busy
             out["breakdown"] = breakdown(dev_iv, record["spans"], t0, t1)
-    lines.append(f"closed loop: {admitted} tuples admitted of {offered} offered in "
+            # Beside it, the idle time by the innermost span open over the
+            # harness's spans and the program's: the program's own inside
+            # the harness's, the harness's (the controller's fold,
+            # adaptation and solves among them) elsewhere.
+            from repro_torch.engine.tracing import flatten
+
+            merged = flatten(record["spans"] + program_spans)
+            out["idle_gaps_by_span"] = breakdown(dev_iv, merged, t0, t1)["idle_gaps"]
+    lines.append(f"{mix['loop']} loop: {admitted} tuples admitted of {offered} offered in "
                  f"{record['delta']['ticks']} ticks, {window_s:.6f} s")
+    if ctl is not None:
+        lines.append(f"{len(history)} whole periods in the window of {seconds} s")
+        for m, (top, dist) in zip(ctl.history, run.folds):
+            lines.append(
+                f"period {m.period}: folded max node load {top:.3f} %, load distance "
+                f"{dist:.3f}; adapted: load distance {m.load_distance:.3f}, collocation "
+                f"{m.collocation_factor:.3f} %, {m.num_migrations} migrations, last solve "
+                f"{m.solver_seconds:.3f} s, pause {m.migration_pause_s:.6f} s")
+        adapts = [(s, e) for n, s, e in record["spans"] if n == "adapt"]
+        if adapts:
+            solves = [[e - s for n, s, e in record["spans"] if n == "solve" and a <= s < b]
+                      for a, b in adapts]
+            lines.append("solves in each adapted period of the window: "
+                         + ", ".join(f"{len(x)} ({sum(x):.3f} s)" for x in solves))
     for m in cell.end_to_end:
         name = m["name"]
         if name == "setup_s":
@@ -297,6 +415,24 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
         lines.append(f"{name} {v}")
     lines.append("first calls of the compiled tier in the window: "
                  f"{record['delta']['jit_compiles']}")
+    controls = []
+    if ctl is not None:
+        # The controller's guarantees: the budget held in every period, the
+        # window moved something, and every key group is routed to a live
+        # node.
+        budget = ctl.framework.max_migrations
+        over = sum(budget is not None and m.num_migrations > budget for m in ctl.history)
+        moved = sum(m["num_migrations"] for m in history)
+        table, alive = run.engine.router.table, run.engine.alive
+        inside = (table >= 0) & (table < len(alive))
+        alloc_err = int(np.count_nonzero(~inside)) + int(
+            np.count_nonzero(~alive[table[inside]]))
+        controls = [("periods_over_budget", float(over), 0.0),
+                    ("no_migration", float(moved == 0), 0.0),
+                    ("alloc_err", float(alloc_err), 0.0)]
+        run.controller = ctl = None  # so that freeing the engine frees it
+        for undo in run.unwrap:
+            undo()
     # The check: the program's state is read, the program freed, then the
     # plain reference runs on the host.
     prog = run.program_result()
@@ -307,6 +443,7 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
     t_ref = time.perf_counter()
     ref_mod, ref = run.reference()
     checks += ref_mod.compare(prog, ref, cfg["limits"])
+    checks += controls
     lines.append(f"reference {time.perf_counter() - t_ref:.3f} s")
     out.update(correct=all(v <= lim for _, v, lim in checks), metrics=metrics, peak=peak,
                window_s=window_s, checks=checks, lines=lines)

@@ -103,6 +103,7 @@ def main(argv=None) -> int:
         device.update(busy_s=res.get("busy_s", 0.0), window_s=res["window_s"])
         if "breakdown" in res:
             line["breakdown"] = res["breakdown"]
+            line["idle_gaps_by_span"] = res["idle_gaps_by_span"]
     line["checks"] = {name: {"value": v, "limit": lim} for name, v, lim in res["checks"]}
     for text in res["lines"]:
         err(text)

@@ -23,9 +23,16 @@ SEED = 2**31 + 3  # beyond 32 signed bits: a run takes any whole-number seed
 
 
 def tiny(name: str) -> Cell:
-    """The cell at 50 key groups an operator and 4,096-tuple batches."""
+    """The cell at 50 key groups an operator at most and 4,096-tuple batches; under
+    the controller, 3-tick periods, 1 s solves and the service rate
+    scaled with the batch, so that the loads stay what they are."""
     cell = Cell(BENCH, name)
-    cell.config["keygroups_per_op"] = 50
+    cell.config["keygroups_per_op"] = min(cell.config["keygroups_per_op"], 50)
+    if cell.mix["loop"] == "controlled":
+        cell.config["service_rate"] *= 4096 / cell.mix["batch"]
+        ctl = cell.config["controller"]
+        ctl["ticks_per_period"] = 3
+        ctl["framework"]["albic_params"]["time_limit"] = 1.0
     cell.mix.update(batch=4096, pool_batches=3)
     cell.mix.update(warmup_batches=2, full_credit=8192)
     return cell
@@ -34,6 +41,9 @@ def tiny(name: str) -> Cell:
 def run_tiny(name: str, trace: bool = False) -> dict:
     return run_cell(tiny(name), seed=SEED, seconds=0.6, trace=trace, device="cpu",
                     t_start=0.0, log=lambda m: None)
+
+
+CONTROLLED = [c for c in CELLS if Cell(BENCH, c).mix["loop"] == "controlled"]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -137,6 +147,18 @@ def _global_ranking_altered(monkeypatch):
     monkeypatch.setattr(jobs, "make_real_job_1", altered_global)
 
 
+def _install_drops_state(monkeypatch):
+    from repro_torch.engine.executor import Engine
+
+    install = Engine.install
+
+    def dropping(self, keygroup, dst, blob):
+        install(self, keygroup, dst, blob)
+        self.store.put(keygroup, {})
+
+    monkeypatch.setattr(Engine, "install", dropping)
+
+
 # Step 3's faults a one-card cell can have (no exchange between chips).
 FAULTS = {
     "job3": {"state unchanged": _sum_delay_state_unchanged, "half batch": _half_batch,
@@ -152,6 +174,125 @@ def test_broken_timed_path_is_not_correct(monkeypatch, name, fault):
     FAULTS[job][fault](monkeypatch)
     res = run_tiny(name)
     assert not res["correct"], res["checks"]
+
+
+@pytest.mark.parametrize("name", CONTROLLED)
+def test_controlled_loop_runs_whole_periods_inside_its_window(name):
+    cell = tiny(name)
+    ctl = cell.config["controller"]
+    res = run_cell(cell, seed=SEED + 1, seconds=2.5, trace=True, device="cpu", t_start=0.0,
+                   log=lambda m: None)
+    assert res["correct"], res["checks"]
+    periods = len(res["history"])
+    # The first period always runs; any later one only where it fit.
+    assert periods >= 1 and (periods == 1 or res["window_s"] <= 2.5)
+    assert res["ticks"] == periods * ctl["ticks_per_period"] + cell.config["drain_ticks"]
+    # The window's periods follow the warm-up's, and every one adapted.
+    first = cell.mix["warmup_periods"]
+    assert [p["period"] for p in res["history"]] == list(range(first, first + periods))
+    assert first > ctl["warmup_periods"]
+    assert {"adapt_ms_per_period", "solver_ms_per_period", "end_period_ms_per_period",
+            "load_distance.albic"} <= set(res["metrics"])
+
+
+def test_controlled_window_starts_a_period_only_where_it_fits(monkeypatch):
+    """On a made clock: warm-up periods of 1 and 2 s, window periods of 1.5,
+    2.5, 1.0, ... s, ticks of 0.1 s, 4 drain ticks to 20-tick periods."""
+    from types import SimpleNamespace
+
+    from chipbench import harness
+
+    clock = [0.0]
+    lengths = iter([1.0, 2.0, 1.5, 2.5, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0])
+    started = []
+
+    def period():
+        started.append(clock[0])
+        clock[0] += next(lengths)
+
+    def tick():
+        clock[0] += 0.1
+
+    monkeypatch.setattr(harness, "time", SimpleNamespace(perf_counter=lambda: clock[0]))
+    run = harness.Run.__new__(harness.Run)
+    run.cell = SimpleNamespace(config={"drain_ticks": 4})
+    run.controller = SimpleNamespace(config=SimpleNamespace(ticks_per_period=20),
+                                     period=period)
+    run.engine = SimpleNamespace(tick=tick)
+    run.cuda, run.longest_period = False, 0.0
+    assert run.controlled(2, None, drain=False) == (0.0, 3.0)
+    assert run.longest_period == 2.0  # the last warm-up period's
+    t0, t1 = run.controlled(None, 8.0, drain=True)
+    # The first starts at 3; a later one only where the time so far plus the
+    # longest period yet, 1.2 times for the drain, fits 8 s: 1.5 + 2.4,
+    # 4.0 + 3.0 and 5.0 + 3.0 do, 6.0 + 3.0 does not.
+    assert started[2:] == [3.0, 4.5, 7.0, 8.0]
+    assert t1 - t0 == pytest.approx(6.0 + 0.4) and t1 - t0 <= 8.0
+
+
+@pytest.mark.parametrize("name", CONTROLLED)
+def test_controlled_cell_migrates_and_is_correct(name):
+    res = run_tiny(name)
+    assert res["correct"], res["checks"]
+    checks = {n: (v, lim) for n, v, lim in res["checks"]}
+    for n in ("periods_over_budget", "no_migration", "alloc_err", "refused"):
+        assert checks[n] == (0.0, 0.0), n
+    budget = Cell(BENCH, name).config["controller"]["framework"]["max_migrations"]
+    moved = [p["num_migrations"] for p in res["history"]]
+    assert sum(moved) > 0 and max(moved) <= budget
+    # The solves' wrappers are gone with the run.
+    import importlib
+
+    solve = importlib.import_module("repro_torch.core.milp").solve_allocation
+    for mod in ("repro_torch.core.albic", "repro_torch.core.framework"):
+        assert importlib.import_module(mod).solve_allocation is solve, mod
+
+
+@pytest.mark.parametrize("name", CONTROLLED)
+def test_dropped_migration_state_is_not_correct(monkeypatch, name):
+    _install_drops_state(monkeypatch)
+    res = run_tiny(name)
+    assert not res["correct"], res["checks"]
+    checks = {n: v for n, v, lim in res["checks"]}
+    assert checks["key_err"] > 0 or checks["sum_err"] > 1e-9, checks
+
+
+@pytest.mark.parametrize("name", CONTROLLED)
+def test_a_budget_broken_is_not_correct(monkeypatch, name):
+    """A framework that ignores its budget (the plan solved without it)
+    fails ``periods_over_budget``."""
+    from repro_torch.core import framework
+
+    albic = framework.albic
+
+    def unbudgeted(state, **kw):
+        return albic(state, **dict(kw, max_migrations=None))
+
+    monkeypatch.setattr(framework, "albic", unbudgeted)
+    res = run_tiny(name)
+    checks = {n: v for n, v, lim in res["checks"]}
+    assert checks["periods_over_budget"] > 0 and not res["correct"], checks
+
+
+def test_anti_collocated_start_is_the_controller_phase_s_definition():
+    from repro_torch.data.jobs import real_job_3
+
+    from chipbench.harness import initial_alloc
+
+    topo = real_job_3(keygroups_per_op=50)
+    nodes = 16
+    want = np.zeros(topo.num_keygroups, dtype=np.int64)
+    for op in range(topo.num_operators):
+        base, n_op = topo.kg_base(op), topo.operators[op].num_keygroups
+        want[base:base + n_op] = (np.arange(n_op) + op * (nodes // 2 + 1)) % nodes
+    got = initial_alloc("anti_collocated", [o.num_keygroups for o in topo.operators],
+                        nodes, SEED)
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    # No two neighbouring operators put a key group index on one node.
+    per_op = got.reshape(topo.num_operators, -1)
+    assert not (per_op[1:] == per_op[:-1]).any()
+    with pytest.raises(ValueError):
+        initial_alloc("round_robin", [50], nodes, SEED)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -199,6 +340,52 @@ def test_readers_by_hand():
     for name in ("keygroup_partition_roofline", "radix_sort_roofline",
                  "device_idle_share.saturate", "jit_host_syncs_per_tick"):
         assert metric_reader(name)(rec) is None, name
+
+
+CONTROLLER_READERS = ["adapt_ms_per_period", "solver_ms_per_period",
+                      "migration_pause_ms_per_period", "end_period_ms_per_period",
+                      "load_distance.albic"]
+
+
+def test_controller_readers_by_hand():
+    """Two adapted periods in the window: 3.0 s of ``adapt``, 1.9 s of
+    ``solve`` inside them (two solves, then one) and 0.5 s of ``end_period``
+    spans among the tick spans; the last solve of each period, as the
+    program's counter keeps it, is not what the solver metric reads."""
+    rec = _record(None)
+    rec["spans"] = [("push_source", 0.0, 0.05), ("tick", 0.05, 0.2), ("end_period", 0.2, 0.4),
+                    ("adapt", 0.4, 2.4), ("solve", 0.5, 1.5), ("solve", 1.6, 2.0),
+                    ("tick", 2.5, 2.6), ("end_period", 2.6, 2.9), ("adapt", 2.9, 3.9),
+                    ("solve", 3.0, 3.5)]
+    rec["history"] = [
+        {"period": 2, "solver_seconds": 1.5, "migration_pause_s": 0.004, "load_distance": 30.0,
+         "num_migrations": 10},
+        {"period": 3, "solver_seconds": 0.5, "migration_pause_s": 0.0, "load_distance": 20.0,
+         "num_migrations": 0},
+    ]
+    read = {name: metric_reader(name)(rec) for name in CONTROLLER_READERS}
+    assert read == {
+        "adapt_ms_per_period": pytest.approx(1500.0),
+        "solver_ms_per_period": pytest.approx(950.0),
+        "migration_pause_ms_per_period": pytest.approx(2.0),
+        "end_period_ms_per_period": pytest.approx(250.0),
+        "load_distance.albic": pytest.approx(25.0),
+    }
+    entries = {m["name"]: m for m in BENCH["per_layer"]}
+    for name in CONTROLLER_READERS:
+        assert entries[name]["workloads"] == CONTROLLED
+        assert entries[name]["layer"] in ("Controller", "Allocators")
+
+
+@pytest.mark.parametrize("name", CONTROLLER_READERS)
+def test_controller_reader_finds_nothing_to_read(name):
+    """No controller: a closed-loop record (no history), and one whose
+    window held no period."""
+    read = metric_reader(name)
+    rec = _record(None)
+    assert read(rec) is None
+    rec["history"] = []
+    assert read(rec) is None
 
 
 def test_no_jax_guard_in_a_subprocess():

@@ -61,7 +61,9 @@ def test_every_cell_reports_what_it_must():
         assert cell.per_layer
         for m in cell.per_layer:
             assert m["moves"] in names
-        assert cell.mix["loop"] == "closed"
+        assert cell.mix["loop"] in ("closed", "controlled")
+        if cell.mix["loop"] == "controlled":
+            assert cell.config["controller"]["framework"]["max_migrations"] > 0
 
 
 def test_cell_data_resolves_by_name():
@@ -88,11 +90,21 @@ def test_config_files_state_their_cuts():
 
 @pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
 def test_config_files_name_what_they_assume(config):
-    """Every assumed size is a parameter the run reads, and the configured
+    """Every assumed size is a parameter the run reads (the stream's, the
+    topology's, the deployment's own, the controller's), and the configured
     stream draws its keys from the truncated Zipf law."""
     entry = next(c for c in BENCH["configs"] if c["name"] == config)
     cfg = json.loads((ROOT / entry["file"]).read_text())
     read = {**cfg["generator"]["params"], **cfg["topology"]["kwargs"]}
+    read.update((k, v) for k, v in cfg.items() if isinstance(v, (int, float)))
+    blocks = [cfg.get("controller", {})]
+    while blocks:
+        block = blocks.pop()
+        for k, v in block.items():
+            if isinstance(v, dict):
+                blocks.append(v)
+            else:
+                read[k] = v
     assert cfg["assumed"] and set(cfg["assumed"]) <= set(read)
     assert cfg["generator"]["params"]["zipf_tail"] == "truncate"
     assert "assumed" in entry["source"] and "assumed" in cfg["paper"]

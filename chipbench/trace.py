@@ -13,15 +13,16 @@ class Spans:
     """``(name, start, end)`` spans of wrapped calls, in perf_counter seconds.
 
     ``wrap(owner, attr, name)`` replaces ``owner.attr`` (an instance's
-    method or a module's function) by a recording wrapper for the rest of
-    the process.  Recording is off until ``on`` is set.
+    method or a module's function) by a recording wrapper, and returns the
+    call that puts the original back.  Recording is off until ``on`` is
+    set.
     """
 
     def __init__(self) -> None:
         self.items: list[tuple[str, float, float]] = []
         self.on = False
 
-    def wrap(self, owner, attr: str, name: str) -> None:
+    def wrap(self, owner, attr: str, name: str):
         fn = getattr(owner, attr)
         items = self.items
 
@@ -35,6 +36,7 @@ class Spans:
                 items.append((name, t0, time.perf_counter()))
 
         setattr(owner, attr, wrapper)
+        return lambda: setattr(owner, attr, fn)
 
 
 class DeviceTrace:
