@@ -21,7 +21,9 @@ quadratic:
           measured one.
   Step 4  solve the constrained MILP; if the achieved load distance exceeds
           maxLD, retry with maxPL reduced by stepPL (more, smaller units).
-          At maxPL == 0 this degenerates to the pure MILP.
+          At maxPL == 0 this degenerates to the pure MILP.  When step 3's
+          pair alone breaks maxLD wherever it lands (``_pin_breaks_max_ld``),
+          every back-off fails and is taken without a solve.
 
 Defaults follow the paper: maxLD = 10, maxPL = 25, stepPL = 5, sF = 1.5.
 """
@@ -62,51 +64,79 @@ class AlbicResult:
     retries: int  # number of maxPL back-offs taken
     col_grps: list[tuple[int, int]]  # realized collocated pairs (diagnostics)
     to_be_col: list[tuple[int, int]]  # candidate pairs not yet collocated
+    # Every solve's plan in order, the back-offs' first; the last is ``plan``.
+    solves: list[AllocationPlan] = dataclasses.field(default_factory=list)
 
 
 def _score_pairs(
     state: ClusterState, score_factor: float
-) -> tuple[list[tuple[int, int]], list[tuple[int, int, float]]]:
-    """Algorithm 2 lines 2–12: (colGrps, toBeColGrps-with-rates).
+) -> tuple[list[tuple[int, int]], list[tuple[int, int]], np.ndarray]:
+    """Algorithm 2 lines 2–12: (colGrps, toBeColGrps, toBeColGrps' rates).
 
     Walks the sparse pair triples (CSR rows) instead of dense (G, G) rows:
     a key group's candidate downstream partners are exactly its nonzero
     pairs, and the per-source average still divides by the *full* downstream
     key-group count (zero-rate partners dilute the average but can never be
-    hot themselves).
+    hot themselves).  An operator's rows are scored at once; each row's
+    total is its own sum, as one row at a time would take it.  Pairs come
+    in operator order, then by source key group, then in CSR order.
     """
-    col: list[tuple[int, int]] = []
-    tobe: list[tuple[int, int, float]] = []
     indptr, dsts, rates = state.out_pairs.rows_csr()
     kg_op = state.kg_operator
     op_sizes = np.bincount(kg_op, minlength=int(kg_op.max()) + 1 if len(kg_op) else 0)
+    src_parts, dst_parts, rate_parts = [], [], []
     for op, downs in state.downstream.items():
         if not downs:
             continue
-        op_kgs = np.where(kg_op == op)[0]
         n_down = int(op_sizes[downs].sum())
         if n_down == 0:
             continue
-        downs_arr = np.asarray(downs)
-        for gk in op_kgs:
-            row = slice(indptr[gk], indptr[gk + 1])
-            d, r = dsts[row], rates[row]
-            m = np.isin(kg_op[d], downs_arr)
-            rm = r[m]
-            total = float(rm.sum())
-            if total <= 0:
-                continue
-            avg = total / n_down
-            sel = rm > avg * score_factor
-            hot = d[m][sel]
-            hot_rates = rm[sel]
-            for gj, rate in zip(hot, hot_rates):
-                pair = (int(gk), int(gj))
-                if state.alloc[gk] == state.alloc[gj]:
-                    col.append(pair)
-                else:
-                    tobe.append((*pair, float(rate)))
-    return col, tobe
+        op_kgs = np.where(kg_op == op)[0]
+        if not len(op_kgs):
+            continue
+        lens = indptr[op_kgs + 1] - indptr[op_kgs]
+        first = indptr[op_kgs] - np.cumsum(lens) + lens
+        entry = np.repeat(first, lens) + np.arange(lens.sum())
+        d, r = dsts[entry], rates[entry]
+        m = np.isin(kg_op[d], np.asarray(downs))
+        src, d, r = np.repeat(op_kgs, lens)[m], d[m], r[m]
+        row = np.repeat(np.arange(len(op_kgs)), lens)[m]
+        counts = np.bincount(row, minlength=len(op_kgs))
+        segments = np.split(r, np.cumsum(counts)[:-1])
+        totals = np.fromiter((seg.sum() for seg in segments), np.float64, len(op_kgs))
+        row_total = np.repeat(totals, counts)
+        sel = (row_total > 0) & (r > row_total / n_down * score_factor)
+        src_parts.append(src[sel])
+        dst_parts.append(d[sel])
+        rate_parts.append(r[sel])
+    empty = np.zeros(0, dtype=np.int64)
+    src = np.concatenate(src_parts) if src_parts else empty
+    dst = np.concatenate(dst_parts) if dst_parts else empty
+    rate = np.concatenate(rate_parts) if rate_parts else np.zeros(0)
+    same = state.alloc[src] == state.alloc[dst]
+    col = list(zip(src[same].tolist(), dst[same].tolist()))
+    tobe = list(zip(src[~same].tolist(), dst[~same].tolist()))
+    return col, tobe, rate[~same]
+
+
+def _pin_breaks_max_ld(
+    state: ClusterState, pair: tuple[int, int], max_ld: float
+) -> bool:
+    """Whether every plan that honours step 3's pin of ``pair`` leaves a
+    load distance above maxLD.
+
+    The pin puts both key groups on one of their two nodes, whatever units
+    step 2 builds, so that node's load is at least theirs.  When that alone
+    lies more than maxLD above the mean on either node, each back-off's
+    solve is infeasible or its plan breaks maxLD.
+    """
+    a = state.alive & ~state.kill
+    pair_load = float(state.kg_load[list(pair)].sum())
+    mean = state.mean_load()
+    return all(
+        a[n] and pair_load / state.capacity[n] - mean > max_ld * (1 + 1e-9) + 1e-9
+        for n in {int(state.alloc[g]) for g in pair}
+    )
 
 
 def _union_sets(pairs: list[tuple[int, int]]) -> list[list[int]]:
@@ -223,7 +253,8 @@ def albic(
     budget = max_migr_cost if max_migr_cost is not None else float("inf")
 
     # Step 1 — calculate scores.
-    col_pairs, tobe = _score_pairs(state, params.score_factor)
+    col_pairs, tobe, tobe_rates = _score_pairs(state, params.score_factor)
+    best = np.where(tobe_rates == tobe_rates.max())[0] if tobe else None
 
     # Leading-load node scores for step 3 (None → fall back to measured).
     proj_loads = (
@@ -234,11 +265,26 @@ def albic(
 
     max_pl = params.max_pl
     retries = 0
+    solves: list[AllocationPlan] = []
+    # Every back-off pins one of the pairs tied for the hottest.  If each of
+    # them breaks maxLD wherever it lands, so does every back-off, and they
+    # are taken without building or solving them (step 2's draws feed
+    # nothing after them: at maxPL 0 no step runs).
+    if (
+        best is not None
+        and max_pl > 0
+        and params.step_pl > 0
+        and all(_pin_breaks_max_ld(state, tobe[i], params.max_ld) for i in best)
+    ):
+        while max_pl > 0:
+            max_pl = max(max_pl - params.step_pl, 0.0)
+            retries += 1
+    sets = _union_sets(col_pairs) if max_pl > 0 else []
     while True:
         # Step 2 — maintain collocation.
         units: list[list[int]] = []
         if max_pl > 0:
-            for s in _union_sets(col_pairs):
+            for s in sets:
                 units.extend(
                     _split_set(
                         state,
@@ -254,9 +300,7 @@ def albic(
         pins: dict[int, int] = {}
         pinned_pair: Optional[tuple[int, int]] = None
         if tobe and max_pl > 0:
-            rates = np.array([r for _, _, r in tobe])
-            best = np.where(rates == rates.max())[0]
-            gi, gj, _ = tobe[int(rng.choice(best))]
+            gi, gj = tobe[int(rng.choice(best))]
             pinned_pair = (gi, gj)
             n1, n2 = int(state.alloc[gi]), int(state.alloc[gj])
             loads = proj_loads if proj_loads is not None else state.node_loads()
@@ -299,6 +343,7 @@ def albic(
             time_limit=params.time_limit,
             prev_rate=prev_rate if params.use_rate_signal else None,
         )
+        solves.append(plan)
         ld_ok = plan.status != "infeasible" and plan.load_distance <= params.max_ld
         if ld_ok or max_pl <= 0:
             return AlbicResult(
@@ -307,7 +352,8 @@ def albic(
                 pinned_pair=pinned_pair,
                 retries=retries,
                 col_grps=col_pairs,
-                to_be_col=[(a, b) for a, b, _ in tobe],
+                to_be_col=tobe,
+                solves=solves,
             )
         max_pl = max(max_pl - params.step_pl, 0.0)
         retries += 1

@@ -44,6 +44,9 @@ class AdaptationResult:
     # Advisory hot-key split/unsplit picks (None when no splitter is
     # configured); the controller applies them after the migrations run.
     split: Optional[SplitDecision] = None
+    # Every MILP solve of the period in order, ALBIC's back-offs and the
+    # re-plans after scaling among them; the last is ``plan``.
+    solves: list[AllocationPlan] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -74,16 +77,21 @@ class AdaptationFramework:
         default=None, init=False, repr=False, compare=False
     )
 
-    def _allocate(self, state: ClusterState) -> AllocationPlan:
+    def _allocate(
+        self, state: ClusterState, solves: list[AllocationPlan]
+    ) -> AllocationPlan:
+        """The allocator's plan; every solve it took is appended to ``solves``."""
         if self.mode == "albic":
-            return albic(
+            result = albic(
                 state,
                 max_migr_cost=self.max_migr_cost,
                 max_migrations=self.max_migrations,
                 params=self.albic_params,
                 prev_rate=self._prev_rate,
-            ).plan
-        return solve_allocation(
+            )
+            solves.extend(result.solves)
+            return result.plan
+        plan = solve_allocation(
             state,
             max_migr_cost=self.max_migr_cost,
             max_migrations=self.max_migrations,
@@ -91,6 +99,8 @@ class AdaptationFramework:
             time_limit=self.time_limit,
             prev_rate=self._prev_rate,
         )
+        solves.append(plan)
+        return plan
 
     def adapt(
         self,
@@ -116,13 +126,14 @@ class AdaptationFramework:
                 terminated.append(int(i))
 
         # Line 4: potential allocation plan (balancing + collocation).
-        plan = self._allocate(state)
+        solves: list[AllocationPlan] = []
+        plan = self._allocate(state, solves)
 
         # Lines 5–7: scaling decision *on the plan*, then integrative re-plan.
         decision = self.scaler.decide(state, plan)
         if decision.scaled:
             state = apply_scaling(state, decision)
-            plan = self._allocate(state)
+            plan = self._allocate(state, solves)
             # Veto scale-in that the re-plan cannot balance: unmark nodes whose
             # removal leaves the survivors outside maxLD.
             if decision.mark_for_removal and self.mode == "albic":
@@ -130,7 +141,7 @@ class AdaptationFramework:
                     for i in decision.mark_for_removal:
                         state.kill[i] = False
                     decision = ScalingDecision()
-                    plan = self._allocate(state)
+                    plan = self._allocate(state, solves)
 
         # Line 8: apply(plan) — emit the migration plan and commit the alloc.
         migration_plan = plan_from_allocations(state, plan.alloc, alpha=self.alpha)
@@ -156,4 +167,5 @@ class AdaptationFramework:
             scaling=decision,
             terminated=terminated,
             split=split,
+            solves=solves,
         )

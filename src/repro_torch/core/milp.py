@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -38,6 +39,14 @@ from repro_torch.solver.lp import MilpBuilder, solve_milp
 # w1 >> w2 per the paper's objective discussion.
 W1_DEFAULT = 1000.0
 W2_DEFAULT = 1.0
+
+# Dense binaries (units x live nodes) above which the scale levers engage.
+SCALE_BINARIES = 20_000
+# Binaries the movable units may take once they do: at 4,000 units on 16
+# nodes about 66 units, enough for a budget of 10 migrations (a bound of
+# 2,000 reached the same d, but ran into a 1.5-second limit in about a
+# sixth of the periods).
+MOVABLE_BINARIES = 600
 
 
 @dataclasses.dataclass
@@ -54,6 +63,15 @@ class AllocationPlan:
     load_distance: float
     migrations: list[tuple[int, int, int]]  # (kg, src_node, dst_node)
     migration_cost: float
+    # What the solve cost: its assignment binaries, the units given them,
+    # perf_counter seconds at its start, building (the program and the
+    # solver's matrix) and in HiGHS, and whether HiGHS returned a point.
+    binaries: int = 0
+    movable_units: int = 0
+    started: float = 0.0
+    build_seconds: float = 0.0
+    highs_seconds: float = 0.0
+    incumbent: bool = False
 
     @property
     def num_migrations(self) -> int:
@@ -94,6 +112,45 @@ def _units_or_singletons(
     for k in np.where(~covered)[0]:
         out.append(np.array([k]))
     return out
+
+
+def _movable_units(
+    unit_load: np.ndarray,
+    homes: np.ndarray,
+    node_loads: np.ndarray,
+    mean: float,
+    state: ClusterState,
+    pins: dict[int, int],
+    limit: int,
+) -> np.ndarray:
+    """The units that keep binaries at scale, as a (nu,) mask.
+
+    Always: pinned units, and units without one live home (members on
+    several nodes, or on a dead one).  Then ``limit`` more, dealt round
+    robin over the nodes marked for removal and the live nodes above the
+    mean, those first and then from the most loaded down, each node's
+    heaviest unit first.
+    """
+    homed = homes >= 0
+    must = ~homed
+    must[list(pins)] = True
+    cand = np.nonzero(homed & ~must)[0]
+    src = homes[cand]
+    keep = state.kill[src] | (node_loads[src] > mean)
+    cand, src = cand[keep], src[keep]
+    if not len(cand):
+        return must
+    # Rank the source nodes (marked first, then by load), sort the units by
+    # (node rank, unit load descending); a unit's rank inside its node then
+    # orders the deal, ties by node rank.
+    node_rank = np.argsort(np.lexsort((-node_loads, ~state.kill)))
+    order = np.lexsort((-unit_load[cand], node_rank[src]))
+    cand, nodes = cand[order], node_rank[src[order]]
+    first = np.r_[0, np.nonzero(np.diff(nodes))[0] + 1]
+    rank = np.arange(len(cand)) - np.repeat(first, np.diff(np.r_[first, len(cand)]))
+    movable = must.copy()
+    movable[cand[np.lexsort((nodes, rank))][:limit]] = True
+    return movable
 
 
 def solve_allocation(
@@ -138,11 +195,30 @@ def solve_allocation(
         binaries to {current node} ∪ pins ∪ the k least-loaded A-nodes.  The
         paper's CPLEX solved the dense 72k-binary instances; HiGHS needs the
         pruning to hit the same few-second solve times at 60×1200 scale.
-        Auto-enabled above 20k binaries.
+        Auto-enabled (k = 8) above ``SCALE_BINARIES`` dense binaries
+        (units × live nodes), together with movable units, a beyond-paper
+        lever, its counterpart for units. Only a bounded set of
+        units keeps binaries: the pinned ones, those without one live home
+        (split over nodes, or on a dead node), then the heaviest units of the
+        nodes marked for removal and of the live nodes above the mean, dealt
+        round robin over those nodes (marked first, then from the most loaded
+        down) until their binaries reach about ``MOVABLE_BINARIES``. Every
+        other unit stays home: its load is a constant on the right-hand sides
+        of rows (3)/(4), which then cover every live node. A budget of a few
+        migrations moves a few units, and those that lower d sit on the nodes
+        above the mean. At 4,000 units on 16 nodes (≈ 34,000 binaries after
+        ``candidate_limit``) HiGHS 1.12's presolve alone outlasts a 1.5-second
+        limit and returns no point; the pruned program (≈ 600) proves its
+        optimum well inside it. Below the threshold the program is the
+        paper's.
+
+    The time spent building the program counts against ``time_limit``:
+    HiGHS gets what is left.
     """
     if max_migr_cost is not None and max_migrations is not None:
         raise ValueError("set at most one of max_migr_cost / max_migrations")
 
+    started = time.perf_counter()
     n, g = state.num_nodes, state.num_keygroups
     unit_list = _units_or_singletons(g, units)
     nu = len(unit_list)
@@ -169,7 +245,8 @@ def solve_allocation(
     live = state.alive  # dead nodes take no variables at all
     pins = pins or {}
 
-    if candidate_limit is None and nu * int(live.sum()) > 20_000:
+    scaled = nu * int(live.sum()) > SCALE_BINARIES
+    if candidate_limit is None and scaled:
         candidate_limit = 8
 
     b = MilpBuilder()
@@ -180,6 +257,16 @@ def solve_allocation(
 
     members, valid, sizes = _pad_units(unit_list)
     mem_alloc = state.alloc[members]  # (nu, maxm); garbage where ~valid
+    unit_load = (kg_load[members] * valid).sum(axis=1)
+    first = mem_alloc[:, 0]
+    homes = first  # a unit's one live node, -1 for none (at scale)
+    movable = np.ones(nu, dtype=bool)
+    if scaled:
+        one_home = live[first] & ((mem_alloc == first[:, None]) | ~valid).all(axis=1)
+        homes = np.where(one_home, first, -1)
+        per_unit = min(candidate_limit, int(live.sum())) + 1
+        movable = _movable_units(unit_load, homes, node_loads, mean, state, pins,
+                                 max(MOVABLE_BINARIES // per_unit, 1))
 
     # Candidate mask (nu, n): which node each unit may be assigned to.  With
     # pruning: the k least-loaded A-nodes ∪ the unit's current homes ∪ pins.
@@ -195,6 +282,7 @@ def solve_allocation(
         cand[np.nonzero(home_ok)[0], mem_alloc[home_ok]] = True
         for u, node in pins.items():
             cand[u, int(node)] = True
+    cand[~movable] = False
 
     # Assignment binaries x[u, i] for every candidate pair, allocated as one
     # contiguous block and scattered into the (nu, n) variable map.
@@ -216,8 +304,10 @@ def solve_allocation(
             fixed = 1.0 if i == node else 0.0
             b.set_var_bounds(idx, fixed, fixed)
 
-    # (1) each unit on exactly one node — one block row per unit.
-    b.add_rows(u_idx, bin_ids, np.ones(nbin), num_rows=nu, lb=1.0, ub=1.0)
+    # (1) each movable unit on exactly one node — one block row per unit.
+    urow = np.cumsum(movable) - 1
+    b.add_rows(urow[u_idx], bin_ids, np.ones(nbin), num_rows=int(movable.sum()),
+               lb=1.0, ub=1.0)
 
     # (2) migration budget.  Coefficient of x[u,i] is the cost of the members
     # of u that are not already on node i ((1−q)·mc summed over the unit).
@@ -234,20 +324,27 @@ def solve_allocation(
 
     # (3)/(4) load bounds per node, assembled node-major from the candidate
     # mask transpose.  Heterogeneity: divide by capacity.  Nodes without any
-    # candidate binary (pruned) cannot receive anything and need no bound.
-    unit_load = (kg_load[members] * valid).sum(axis=1)
+    # candidate binary (pruned) cannot receive anything and need no bound,
+    # unless units fixed at home load them: at scale every live node has its
+    # rows, the fixed load moved to their right-hand sides.
     iT, uT = np.nonzero(cand.T)
     colsT = xvar[uT, iT]
     loadT = unit_load[uT] / state.capacity[iT]
-    nodes3 = np.unique(iT)
+    nodes3 = live_nodes if scaled else np.unique(iT)
     m3 = len(nodes3)
+    fixed_units = np.nonzero(~movable)[0]
+
+    def fixed_sum(usage: np.ndarray) -> np.ndarray:
+        return np.bincount(homes[fixed_units], weights=usage[fixed_units], minlength=n)
+
+    fixed_load = fixed_sum(unit_load) / state.capacity
     # (3): Σ load·x − d + d_u ≤ mean   (all live nodes, incl. B)
     b.add_rows(
         np.concatenate([np.searchsorted(nodes3, iT), np.arange(m3), np.arange(m3)]),
         np.concatenate([colsT, np.full(m3, vd), np.full(m3, vdu)]),
         np.concatenate([loadT, -np.ones(m3), np.ones(m3)]),
         num_rows=m3,
-        ub=float(mean),
+        ub=float(mean) - fixed_load[nodes3],
     )
     # (4): Σ load·x + d − d_l ≥ mean   (only nodes not marked for removal)
     keep = ~state.kill[iT]
@@ -261,7 +358,7 @@ def solve_allocation(
             np.concatenate([colsT[keep], np.full(m4, vd), np.full(m4, vdl)]),
             np.concatenate([loadT[keep], np.ones(m4), -np.ones(m4)]),
             num_rows=m4,
-            lb=float(mean),
+            lb=float(mean) - fixed_load[nodes4],
         )
 
     # Multi-dimensional load extension: cap each extra resource per node.
@@ -272,18 +369,21 @@ def solve_allocation(
             colsT,
             res_unit[uT],
             num_rows=m3,
-            ub=np.asarray(caps, dtype=np.float64)[nodes3],
+            ub=np.asarray(caps, dtype=np.float64)[nodes3] - fixed_sum(res_unit)[nodes3],
         )
 
     problem = b.build()
     # Warm start: keep every unit where its (first member) currently lives.
     warm = np.zeros(problem.num_vars)
     warm[0] = mean
-    homes = mem_alloc[:, 0]
-    home_x = xvar[np.arange(nu), homes]
-    keep_home = live[homes] & (home_x >= 0)
+    home_x = xvar[np.arange(nu), first]
+    keep_home = live[first] & (home_x >= 0)
     warm[home_x[keep_home]] = 1.0
-    result = solve_milp(problem, time_limit=time_limit, warm_start=warm)
+    built = time.perf_counter() - started
+    result = solve_milp(problem, time_limit=time_limit - built, warm_start=warm)
+    spent = dict(binaries=nbin, movable_units=int(movable.sum()), started=started,
+                build_seconds=built + result.build_seconds,
+                highs_seconds=result.solve_seconds, incumbent=result.incumbent)
 
     if not result.ok:
         # Infeasible (e.g. budget too tight for pins): fall back to identity.
@@ -298,13 +398,14 @@ def solve_allocation(
             load_distance=state.load_distance(),
             migrations=[],
             migration_cost=0.0,
+            **spent,
         )
 
     x = result.x
     alloc = state.alloc.copy()
     scores = np.full((nu, n), -1.0)
     scores[u_idx, i_idx] = x[bin_ids]
-    best = np.argmax(scores, axis=1)
+    best = np.where(movable, np.argmax(scores, axis=1), homes)
     alloc[members[valid]] = np.repeat(best, sizes)
 
     moved = np.where(alloc != state.alloc)[0]
@@ -320,4 +421,5 @@ def solve_allocation(
         load_distance=state.load_distance(alloc),
         migrations=migrations,
         migration_cost=float(mc[moved].sum()),
+        **spent,
     )

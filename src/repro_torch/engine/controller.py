@@ -46,6 +46,13 @@ class PeriodMetrics:
     num_unsplits: int = 0
     #: Worker recoveries (supervised respawn + rewind) completed this period.
     num_recoveries: int = 0
+    # The period's MILP solves, ALBIC's back-offs among them: how many, and
+    # the sums of their assignment binaries, seconds building and seconds
+    # in HiGHS.
+    milp_solves: int = 0
+    milp_binaries: int = 0
+    milp_build_seconds: float = 0.0
+    milp_highs_seconds: float = 0.0
 
 
 class Controller:
@@ -115,6 +122,14 @@ class Controller:
                     self.engine.split_keygroup(kg)
                     num_splits += 1
 
+        solves = result.solves if result is not None else []
+        spans = getattr(self.engine, "spans", None)
+        if spans is not None:
+            for p in solves:
+                built = p.started + p.build_seconds
+                spans.append(("milp.build", p.started, built))
+                spans.append(("milp.highs", built, built + p.highs_seconds))
+
         alloc = self.engine.router.table
         # Post-adaptation view: after scaling, `snapshot` predates the new
         # nodes while `alloc` may already reference them.
@@ -151,6 +166,10 @@ class Controller:
             num_recoveries=(
                 len(getattr(self.engine, "recoveries", ())) - recoveries_before
             ),
+            milp_solves=len(solves),
+            milp_binaries=sum(p.binaries for p in solves),
+            milp_build_seconds=sum(p.build_seconds for p in solves),
+            milp_highs_seconds=sum(p.highs_seconds for p in solves),
         )
         self.engine.latency.reset()
         self.history.append(metrics)

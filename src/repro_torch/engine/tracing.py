@@ -32,12 +32,23 @@ span                   interval (counter)
 ``flush:<op>``         ``_flush_outputs`` for ``<op>``: cells expanded,
                        batches conformed and concatenated, sources
                        attributed, up to its routing (``flush_seconds``)
+``milp.build``         a MILP solve of the controller's period, up to
+                       HiGHS: its rows and the solver's sparse matrix
+                       (``PeriodMetrics.milp_build_seconds``)
+``milp.highs``         that solve's HiGHS call
+                       (``PeriodMetrics.milp_highs_seconds``)
 =====================  =====================================================
 
+The two ``milp`` spans are the controller's (``Controller.period``), one
+pair a solve, ALBIC's back-offs among them, appended after the period's
+adaptation from the times its plans carry; their counters are the
+period's sums.
+
 Spans of one thread nest by containment: a span's parent is the smallest
-span that encloses it, and the top-level spans are ``tick`` and
-``admit``.  No counter holds another's interval, except ``route_seconds``,
-which holds ``device_route_seconds`` and ``gather_seconds``.
+span that encloses it, and the top-level spans are ``tick``, ``admit``
+and the ``milp`` spans.  No counter holds another's interval, except
+``route_seconds``, which holds ``device_route_seconds`` and
+``gather_seconds``.
 """
 
 from __future__ import annotations

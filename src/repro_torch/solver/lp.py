@@ -35,6 +35,9 @@ try:  # scipy is an optional-but-expected dependency
 except Exception:  # pragma: no cover - exercised only in scipy-less envs
     _HAVE_SCIPY = False
 
+# The least time HiGHS is given, however much of the limit the build took.
+MIN_HIGHS_SECONDS = 0.01
+
 
 @dataclasses.dataclass
 class MilpProblem:
@@ -66,6 +69,11 @@ class MilpResult:
     status: str  # "optimal" | "time_limit" | "infeasible" | "fallback"
     solve_seconds: float
     mip_gap: Optional[float] = None
+    # Seconds spent handing the problem to the solver (its sparse matrix),
+    # and whether the solver returned a point: "infeasible" is also the
+    # status of a time limit that struck before the first incumbent.
+    build_seconds: float = 0.0
+    incumbent: bool = False
 
     @property
     def ok(self) -> bool:
@@ -81,6 +89,8 @@ def solve_milp(
 ) -> MilpResult:
     """Solve ``problem``; return the incumbent when the time limit strikes.
 
+    ``time_limit`` covers the whole call: the time spent handing the
+    problem to HiGHS is charged against it, and HiGHS gets what is left.
     ``warm_start`` is accepted for interface parity (HiGHS via scipy does not
     take MIP starts; the fallback uses it as its starting assignment).
     """
@@ -92,6 +102,7 @@ def solve_milp(
 def _solve_scipy(
     problem: MilpProblem, *, time_limit: float, mip_rel_gap: float
 ) -> MilpResult:
+    t_build = time.perf_counter()
     n = problem.num_vars
     a = _ssp.csc_matrix(
         (problem.a_vals, (problem.a_rows, problem.a_cols)),
@@ -100,13 +111,14 @@ def _solve_scipy(
     constraints = _sopt.LinearConstraint(a, problem.row_lb, problem.row_ub)
     bounds = _sopt.Bounds(problem.var_lb, problem.var_ub)
     t0 = time.perf_counter()
+    build = t0 - t_build
     res = _sopt.milp(
         c=problem.c,
         constraints=constraints,
         bounds=bounds,
         integrality=problem.integrality,
         options={
-            "time_limit": float(time_limit),
+            "time_limit": max(float(time_limit) - build, MIN_HIGHS_SECONDS),
             "mip_rel_gap": float(mip_rel_gap),
             "presolve": True,
         },
@@ -118,6 +130,7 @@ def _solve_scipy(
             objective=float("inf"),
             status="infeasible",
             solve_seconds=dt,
+            build_seconds=build,
         )
     status = "optimal" if res.status == 0 else "time_limit"
     gap = getattr(res, "mip_gap", None)
@@ -127,6 +140,8 @@ def _solve_scipy(
         status=status,
         solve_seconds=dt,
         mip_gap=None if gap is None else float(gap),
+        build_seconds=build,
+        incumbent=True,
     )
 
 
