@@ -319,6 +319,106 @@ class ClusterState:
         )
 
 
+#: Cells (int64 counters) one source operator's dense send-pair block may
+#: hold; the pairs of an operator whose block would be larger take the
+#: sparse path.  Real Job 3 at 1,000 key groups an operator has blocks of
+#: 1,000 x 1,000 and 1,000 x 2,000 cells.
+DENSE_PAIR_CELLS = 1 << 23
+
+# Largest weight the dense blocks count.  Integral weights up to it sum
+# exactly in int64, and in float64 while a pair's total stays under 2**53
+# (2**22 entries at this weight), so the blocks give the sparse path's
+# rates bit for bit; any other weight takes the sparse path.
+_DENSE_WEIGHT_MAX = float(1 << 31)
+
+
+def _integral(w: np.ndarray) -> bool:
+    return bool(np.all(np.abs(w) <= _DENSE_WEIGHT_MAX)) and np.array_equal(
+        w, np.trunc(w)
+    )
+
+
+class PairBlocks:
+    """The topology's send pairs as dense count blocks, one per source
+    operator.
+
+    A block's rows are its operator's key groups; its columns are the key
+    groups of the operator's downstream operators, concatenated in
+    increasing base order.  The blocks lie one after another, in base
+    order, in one flat vector, so a held pair's cell index increases with
+    (src, dst): the nonzero cells read in order are :class:`PairRates`'
+    order, with no sort.  Not held: ids outside every operator (hot-key
+    replica slots), pairs that are no topology edge, and the pairs of an
+    operator whose block would pass ``DENSE_PAIR_CELLS``.
+    """
+
+    def __init__(self, bases, sizes, downstream: dict, num_keygroups: int) -> None:
+        nops = len(sizes)
+        self._op_of = np.full(num_keygroups, nops, dtype=np.int64)  # nops: none
+        for o in range(nops):
+            self._op_of[bases[o] : bases[o] + sizes[o]] = o
+        # A held entry's cell is src * mult[src op] + dst + shift[src op, dst op].
+        self._mult = np.zeros(nops + 1, dtype=np.int64)
+        self._shift = np.zeros((nops + 1, nops + 1), dtype=np.int64)
+        self._held = np.zeros((nops + 1, nops + 1), dtype=bool)
+        # Per block: (first cell, src base, columns, each column's dst id).
+        self.blocks: list[tuple[int, int, int, np.ndarray]] = []
+        size = 0
+        for s in range(nops):
+            outs = sorted(set(downstream.get(s, ())), key=lambda d: bases[d])
+            cols = sum(sizes[d] for d in outs)
+            if not cols or sizes[s] * cols > DENSE_PAIR_CELLS:
+                continue
+            self._mult[s] = cols
+            col = 0
+            for d in outs:
+                self._shift[s, d] = size - bases[s] * cols + col - bases[d]
+                self._held[s, d] = True
+                col += sizes[d]
+            col_kg = np.concatenate(
+                [np.arange(bases[d], bases[d] + sizes[d]) for d in outs]
+            )
+            self.blocks.append((size, int(bases[s]), cols, col_kg))
+            size += sizes[s] * cols
+        self.size = size
+
+    def codes(
+        self, src: np.ndarray, dst: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray | None]:
+        """The cells of the held entries, and which entries are held (None:
+        every one).  A batch of one hop (one operator at each end, as every
+        routed batch of a linear job) is coded without a lookup per entry."""
+        op_of = self._op_of
+        s, d = op_of[src.min()], op_of[dst.min()]
+        if s == op_of[src.max()] and d == op_of[dst.max()]:
+            if not self._held[s, d]:
+                return np.empty(0, dtype=np.int64), np.zeros(len(src), dtype=bool)
+            code = np.multiply(src, self._mult[s], dtype=np.int64)
+            code += dst
+            code += self._shift[s, d]
+            return code, None
+        so, do = op_of[src], op_of[dst]
+        held = self._held[so, do]
+        code = np.multiply(src, self._mult[so], dtype=np.int64)
+        code += dst
+        code += self._shift[so, do]
+        return code[held], held
+
+    def pairs(
+        self, counts: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(src, dst, count) of the nonzero cells, in (src, dst) order."""
+        nz = np.flatnonzero(counts)
+        src = np.empty(len(nz), dtype=np.int64)
+        dst = np.empty(len(nz), dtype=np.int64)
+        bounds = np.searchsorted(nz, [b[0] for b in self.blocks] + [self.size])
+        for (first, base, cols, col_kg), a, z in zip(self.blocks, bounds, bounds[1:]):
+            row, col = np.divmod(nz[a:z] - first, cols)
+            src[a:z] = row + base
+            dst[a:z] = col_kg[col]
+        return src, dst, counts[nz]
+
+
 @dataclasses.dataclass
 class SPLWindow:
     """Accumulates raw statistics over one statistics period (SPL).
@@ -328,25 +428,39 @@ class SPLWindow:
     Resources are tracked separately so the *bottleneck resource* (the one
     with greatest total usage — paper §3) can be selected per window.
 
-    Pair rates accumulate sparsely: each recorded batch appends its
-    ``src * G + dst`` codes, and :meth:`fold` reduces them to unique
-    (src, dst, count) triples — O(recorded tuples) memory with periodic
-    compaction, never a (G, G) matrix.  Per-key-group arrival histograms
-    (``kg_arrivals``) come either from per-run counts on the host or
-    straight from the ``keygroup_partition`` kernel's histogram output — the
-    two are validated bit-identical.
+    Pair rates take one of two paths.  With a ``layout``
+    (:class:`PairBlocks`), each recorded batch appends the flat cells of the
+    pairs its blocks hold, and every ``compact_threshold`` pending entries
+    one ``bincount`` adds them to the blocks' counts; :meth:`pair_counts`
+    reads the nonzero cells back in order.  Every other entry — and every
+    entry once a weight arrives that is not a positive integer the blocks
+    count exactly, until :meth:`reset` — takes the sparse path: its
+    ``src * G + dst`` codes are reduced to unique (src, dst, count) triples
+    by a sort at each compaction.  Both give the same rates bit for bit on
+    integral weights, which sum exactly in any grouping.  Per-key-group
+    arrival histograms (``kg_arrivals``) come either from per-run counts on
+    the host or straight from the ``keygroup_partition`` kernel's histogram
+    output — the two are validated bit-identical.
     """
 
     num_keygroups: int
     resources: tuple[str, ...] = ("cpu", "network", "memory")
     compact_threshold: int = 1 << 21  # pending pair entries before compaction
+    layout: PairBlocks | None = None
 
     def __post_init__(self) -> None:
         g = self.num_keygroups
         self.kg_usage = {r: np.zeros(g) for r in self.resources}
         self.kg_arrivals = np.zeros(g)
-        # Pair sends accumulate as raw (src, dst[, weight]) array refs — the
-        # record path is two list appends; codes are computed at compaction.
+        # Dense path: pending cells (weights: None → all ones) and the
+        # blocks' counts, allocated by the first count.
+        self._cell_codes: list[np.ndarray] = []
+        self._cell_weights: list[np.ndarray | None] = []
+        self._cell_entries = 0
+        self._cells: np.ndarray | None = None
+        self._sparse_only = self.layout is None
+        # Sparse path: raw (src, dst[, weight]) array refs — the record path
+        # is list appends; codes are computed at compaction.
         self._pair_src: list[np.ndarray] = []
         self._pair_dst: list[np.ndarray] = []
         self._pair_weights: list[np.ndarray | None] = []  # None → all-ones
@@ -357,13 +471,8 @@ class SPLWindow:
     def record_processing(self, resource: str, kg: int, usage: float) -> None:
         self.kg_usage[resource][kg] += usage
 
-    def record_send(self, src_kg: int, dst_kg: int, tuples: float) -> None:
-        self._pair_src.append(np.array([src_kg], dtype=np.int64))
-        self._pair_dst.append(np.array([dst_kg], dtype=np.int64))
-        self._pair_weights.append(np.array([tuples]))
-        self._pair_entries += 1
-        if self._pair_entries > self.compact_threshold:
-            self._compact_pairs()
+    def record_send(self, src_kg: int, dst_kg: int, tuples: float) -> int:
+        return self.record_send_counts([src_kg], [dst_kg], [tuples])
 
     def record_processing_many(
         self, resource: str, kgs: np.ndarray, usage: np.ndarray
@@ -371,36 +480,99 @@ class SPLWindow:
         """Batched :meth:`record_processing` (kgs need not be unique)."""
         np.add.at(self.kg_usage[resource], kgs, usage)
 
-    def record_send_pairs(self, src_kgs: np.ndarray, dst_kgs: np.ndarray) -> None:
+    def record_send_pairs(self, src_kgs: np.ndarray, dst_kgs: np.ndarray) -> int:
         """Batched :meth:`record_send`: one tuple per (src, dst) pair entry.
+        Returns the entries the dense blocks took.
 
-        Holds references to the arrays (callers pass freshly built
-        attribution arrays, never mutated afterwards).
+        The sparse path holds references to the arrays (callers pass freshly
+        built attribution arrays, never mutated afterwards).
         """
-        self._pair_src.append(src_kgs)
-        self._pair_dst.append(dst_kgs)
-        self._pair_weights.append(None)
-        self._pair_entries += len(src_kgs)
-        if self._pair_entries > self.compact_threshold:
-            self._compact_pairs()
+        return self._record(src_kgs, dst_kgs, None)
 
     def record_send_counts(
         self, src_kgs: np.ndarray, dst_kgs: np.ndarray, counts: np.ndarray
-    ) -> None:
+    ) -> int:
         """Batched :meth:`record_send` with explicit per-pair tuple counts.
 
         Equivalent to :meth:`record_send_pairs` over ``counts[j]`` repeats of
         each ``(src_kgs[j], dst_kgs[j])`` pair — the compaction sums weights,
         and integer counts sum exactly in float64 — without materializing the
         per-tuple attribution arrays (the fused superstep path only ever
-        knows per-edge counts).
+        knows per-edge counts).  Returns the entries the dense blocks took.
         """
-        self._pair_src.append(np.asarray(src_kgs, dtype=np.int64))
-        self._pair_dst.append(np.asarray(dst_kgs, dtype=np.int64))
-        self._pair_weights.append(np.asarray(counts, dtype=np.float64))
-        self._pair_entries += len(src_kgs)
+        return self._record(
+            np.asarray(src_kgs, dtype=np.int64),
+            np.asarray(dst_kgs, dtype=np.int64),
+            np.asarray(counts, dtype=np.float64),
+        )
+
+    def _record(self, src, dst, w) -> int:
+        if len(src) == 0:
+            return 0
+        if not self._sparse_only and w is not None and not _integral(w):
+            self._to_sparse()
+        if self._sparse_only:
+            self._record_sparse(src, dst, w)
+            return 0
+        code, held = self.layout.codes(src, dst)
+        if w is not None and not (w > 0).all():
+            # Zero and negative weights take the sparse path, which keeps a
+            # pair whose weights sum to 0.
+            pos = w > 0
+            code = code[pos] if held is None else code[pos[held]]
+            held = pos if held is None else held & pos
+        if held is not None:
+            rest = ~held
+            self._record_sparse(src[rest], dst[rest], None if w is None else w[rest])
+            w = None if w is None else w[held]
+        if len(code):
+            self._cell_codes.append(code)
+            self._cell_weights.append(w)
+            self._cell_entries += len(code)
+            if self._cell_entries > self.compact_threshold:
+                self._count_cells()
+        return len(code)
+
+    def _record_sparse(self, src, dst, w) -> None:
+        if len(src) == 0:
+            return
+        self._pair_src.append(src)
+        self._pair_dst.append(dst)
+        self._pair_weights.append(w)
+        self._pair_entries += len(src)
         if self._pair_entries > self.compact_threshold:
             self._compact_pairs()
+
+    def _count_cells(self) -> None:
+        """Add the pending cells to the blocks' counts: one bincount."""
+        if not self._cell_codes:
+            return
+        parts, ws = self._cell_codes, self._cell_weights
+        codes = np.concatenate(parts) if len(parts) > 1 else parts[0]
+        if all(w is None for w in ws):
+            counts = np.bincount(codes, minlength=self.layout.size)
+        else:
+            weights = np.concatenate(
+                [np.ones(len(c)) if w is None else w for c, w in zip(parts, ws)]
+            )
+            counts = np.bincount(codes, weights, self.layout.size).astype(np.int64)
+        if self._cells is None:
+            self._cells = counts
+        else:
+            self._cells += counts
+        self._cell_codes = []
+        self._cell_weights = []
+        self._cell_entries = 0
+
+    def _to_sparse(self) -> None:
+        """Hand the blocks' counts to the sparse path, which takes every
+        entry from here until :meth:`reset`."""
+        self._count_cells()
+        if self._cells is not None:
+            src, dst, counts = self.layout.pairs(self._cells)
+            self._cells = None
+            self._record_sparse(src, dst, counts.astype(np.float64))
+        self._sparse_only = True
 
     def record_arrivals(self, base: int, hist: np.ndarray) -> None:
         """Add one operator's per-key-group tuple histogram (kernel output)."""
@@ -408,11 +580,25 @@ class SPLWindow:
 
     def pair_counts(self) -> "PairRates":
         """Reduce the accumulated pair sends into sparse rates."""
+        self._count_cells()
         self._compact_pairs()
-        if self._compacted is None:
-            return PairRates.empty(self.num_keygroups)
-        codes, weights = self._compacted
         g = self.num_keygroups
+        if self._cells is not None:
+            src, dst, counts = self.layout.pairs(self._cells)
+            rate = counts.astype(np.float64)
+            if self._compacted is None:
+                return PairRates(src, dst, rate, g)
+            # Both paths took entries, all of them integral: any order of
+            # the sums gives the same rates.
+            codes, weights = self._compacted
+            return PairRates.from_codes(
+                np.concatenate([src * g + dst, codes]),
+                np.concatenate([rate, weights]),
+                g,
+            )
+        if self._compacted is None:
+            return PairRates.empty(g)
+        codes, weights = self._compacted
         return PairRates(codes // g, codes % g, weights, g)
 
     def _compact_pairs(self) -> None:
@@ -460,6 +646,11 @@ class SPLWindow:
         for r in self.resources:
             self.kg_usage[r][:] = 0
         self.kg_arrivals[:] = 0
+        self._cell_codes = []
+        self._cell_weights = []
+        self._cell_entries = 0
+        self._cells = None
+        self._sparse_only = self.layout is None
         self._pair_src = []
         self._pair_dst = []
         self._pair_weights = []

@@ -144,6 +144,9 @@ _METRIC_SUM_FIELDS = (
     "gather_seconds",
     "gather_view_columns",
     "gather_object_columns",
+    "stats_seconds",
+    "pair_dense_entries",
+    "pair_sparse_entries",
 )
 
 #: The port's per-operator counters (dicts keyed by operator id), summed

@@ -73,7 +73,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.stats import ClusterState, SPLWindow
+from repro_torch.core.stats import ClusterState, PairBlocks, SPLWindow
 from repro_torch.device import declared_sync, resolve_device
 from repro_torch.engine import serde
 from repro_torch.engine.backpressure import CreditController, LatencyTracker
@@ -134,8 +134,8 @@ class EngineMetrics:
     # its spans' durations (repro_torch.engine.tracing names them) or, for
     # admit_seconds and op_seconds, their self time.  route_seconds and
     # op_seconds are per operator id; route_seconds holds
-    # device_route_seconds and gather_seconds, and no other interval is
-    # counted twice.
+    # device_route_seconds, gather_seconds and stats_seconds, and no other
+    # interval is counted twice.
     admit_seconds: float = 0.0
     route_seconds: dict = dataclasses.field(default_factory=dict)
     op_seconds: dict = dataclasses.field(default_factory=dict)
@@ -151,6 +151,13 @@ class EngineMetrics:
     gather_seconds: float = 0.0
     gather_view_columns: int = 0
     gather_object_columns: int = 0
+    # Routing's send statistics: the route.stats spans' seconds (the send
+    # pairs counted, compaction included, and the cross-node charges), and
+    # the send-pair entries the window's dense blocks and its sparse path
+    # took (repro_torch.core.stats.SPLWindow).
+    stats_seconds: float = 0.0
+    pair_dense_entries: int = 0
+    pair_sparse_entries: int = 0
     # Multi-worker shards only, per destination operator id: batches
     # partitioned a first time to split them by owning worker (each is
     # partitioned again when the merged batch routes, as in the reference),
@@ -277,7 +284,17 @@ class Engine:
             )
         self.store = KeyedStore(g_eff)
         self.router = Router(g_eff, initial_alloc)
-        self.window = SPLWindow(g_eff)
+        # The send pairs of topology edges are counted in dense blocks;
+        # replica slots take the window's sparse path.
+        self.window = SPLWindow(
+            g_eff,
+            layout=PairBlocks(
+                topology.kg_base_table()[:-1],
+                [o.num_keygroups for o in topology.operators],
+                topology.downstream(),
+                g_eff,
+            ),
+        )
         self.metrics = EngineMetrics()
         # Set to a list to record (name, start, end) spans on the
         # perf_counter clock (repro_torch.engine.tracing); the caller owns
@@ -580,7 +597,9 @@ class Engine:
         tup_nodes = self.router.nodes_of(kgs)
         if src_kgs is not None:
             t = time.perf_counter()
-            window.record_send_pairs(src_kgs, kgs)
+            dense = window.record_send_pairs(src_kgs, kgs)
+            m.pair_dense_entries += dense
+            m.pair_sparse_entries += n - dense
             cross = tup_nodes != src_nodes
             cs_src = src_kgs[cross]
             n_cross = len(cs_src)
@@ -593,10 +612,12 @@ class Engine:
                 both += np.bincount(kgs[cross], minlength=g)
                 self._cpu_usage += both * self.ser_cost
                 window.kg_usage["network"] += both
-            self.metrics.cross_node_tuples += n_cross
-            self.metrics.intra_node_tuples += n - n_cross
+            m.cross_node_tuples += n_cross
+            m.intra_node_tuples += n - n_cross
+            t1 = time.perf_counter()
+            m.stats_seconds += t1 - t
             if spans is not None:
-                spans.append((f"route.stats:{self._op_names[op]}", t, time.perf_counter()))
+                spans.append((f"route.stats:{self._op_names[op]}", t, t1))
         # Sort tuples by the (destination node, key group) composite so each
         # node's work is ONE contiguous slice of the sorted arrays and runs
         # are adjacent within it — segments can then be drained with whole-
@@ -1360,7 +1381,10 @@ class Engine:
             self._jit.sync_store()
         ticks = max(self._ticks_this_period, 1)
         scale = 100.0 / (ticks * self.service_rate)  # → % of a reference node
+        t0 = time.perf_counter()
         kg_load, out_pairs, _resource = self.window.fold(scale_to_percent=scale)
+        if self.spans is not None:
+            self.spans.append(("fold.pairs", t0, time.perf_counter()))
         state = ClusterState.create(
             self.num_nodes,
             self._kg_op,

@@ -692,7 +692,9 @@ class SuperstepRuntime:
         nkg_d = plan.nkg[i + 1]
         sl, dl = np.nonzero(pairs)
         cnt = pairs[sl, dl]
-        window.record_send_counts(sl + base_s, dl + base_d, cnt)
+        dense = window.record_send_counts(sl + base_s, dl + base_d, cnt)
+        metrics.pair_dense_entries += dense
+        metrics.pair_sparse_entries += len(sl) - dense
         dst_nodes_l = eng.router.table[base_d : base_d + nkg_d]
         cross = src_node_of[sl] != dst_nodes_l[dl]
         n_cross = int(cnt[cross].sum())
@@ -1092,9 +1094,12 @@ class SuperstepRuntime:
         metrics.intra_node_tuples += intra_total
         eng._arrivals += arrivals_agg
         eng._cpu_usage += usage_agg
-        eng.window.record_send_counts(
-            np.concatenate(pair_src_l), np.concatenate(pair_dst_l), np.concatenate(pair_cnt_l)
+        pair_src = np.concatenate(pair_src_l)
+        dense = eng.window.record_send_counts(
+            pair_src, np.concatenate(pair_dst_l), np.concatenate(pair_cnt_l)
         )
+        metrics.pair_dense_entries += dense
+        metrics.pair_sparse_entries += len(pair_src) - dense
         # sink outputs, tick order
         if eng.collect_sinks and term is not None:
             if static:

@@ -16,7 +16,8 @@ span                   interval (counter)
 ``route:<op>``         ``_route_batch`` to ``<op>`` (``route_seconds[op]``)
 ``route.device:<op>``  a device round trip of routing: upload, kernels,
                        download (``device_route_seconds``)
-``route.stats:<op>``   send pairs and cross-node usage
+``route.stats:<op>``   send pairs counted (compaction included) and
+                       cross-node usage (``stats_seconds``)
 ``route.gather:<op>``  the composite sort and the gather by its order
                        (``gather_seconds``: its self time, the gather)
 ``route.enqueue:<op>`` the runs pushed onto the nodes' queues
@@ -32,6 +33,8 @@ span                   interval (counter)
 ``flush:<op>``         ``_flush_outputs`` for ``<op>``: cells expanded,
                        batches conformed and concatenated, sources
                        attributed, up to its routing (``flush_seconds``)
+``fold.pairs``         ``Engine.end_period``'s fold of the statistics
+                       window: the send pairs' rates, the loads
 ``milp.build``         a MILP solve of the controller's period, up to
                        HiGHS: its rows and the solver's sparse matrix
                        (``PeriodMetrics.milp_build_seconds``)
@@ -45,10 +48,10 @@ adaptation from the times its plans carry; their counters are the
 period's sums.
 
 Spans of one thread nest by containment: a span's parent is the smallest
-span that encloses it, and the top-level spans are ``tick``, ``admit``
-and the ``milp`` spans.  No counter holds another's interval, except
-``route_seconds``, which holds ``device_route_seconds`` and
-``gather_seconds``.
+span that encloses it, and the top-level spans are ``tick``, ``admit``,
+``fold.pairs`` and the ``milp`` spans.  No counter holds another's
+interval, except ``route_seconds``, which holds ``device_route_seconds``,
+``gather_seconds`` and ``stats_seconds``.
 """
 
 from __future__ import annotations
