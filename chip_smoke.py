@@ -246,14 +246,10 @@ error or mismatch:
    decode step under ``activation_rules(rules_for(...), mesh=...)`` take
    the expert-parallel path (every MoE layer, through moe_gemm) and are
    held by the row check to the same steps without the context (both
-   under deterministic algorithms, so bit equality is reported too); (d)
-   Real Job 3 at phase 3's deployment under ``.jit(mesh=make_mesh((1,),
-   ("nodes",)))`` for 2 ticks + drain against ``.jit()``: sink outputs and
-   integers equal, floats within rtol 1e-9, both routing kernels on every
-   hop;
+   under deterministic algorithms, so bit equality is reported too);
 
 then one JSON line listing the kernels with their launches on the paths
-that run them (phases 3, 3j, 3r, 3s, 3w, 4, 4s and 12 (d) for routing,
+that run them (phases 3, 3j, 3r, 3s, 3w, 4 and 4s for routing,
 5-12 for the LM kernels; phase 9's also apart, with its backward launches), times,
 bounds and yardsticks; the card's name and power limit (``nvidia-smi``);
 and, last, the line ``{"ok": true, "device": {...}}``.  It exits nonzero
@@ -3973,7 +3969,6 @@ def run_lm(dev, drive, spec: dict) -> tuple[dict, dict]:
 DRY_FITS = {("recurrentgemma_2b", "decode_32k"), ("recurrentgemma_2b", "long_500k"),
             ("xlstm_1_3b", "decode_32k"), ("xlstm_1_3b", "long_500k")}
 DRY_OK, DRY_SKIP = 32, 8  # applicable cells, and long_500k of the 8 full-attention archs
-MESH_TICKS = 2  # (d): Real Job 3 ticks under .jit(mesh=...) at phase 3's size
 
 
 @contextlib.contextmanager
@@ -4131,58 +4126,9 @@ def run_dryrun(dev) -> dict:
     return dict(seconds=secs, table=table, skipped=[(r["arch"], r["shape"]) for r in skip])
 
 
-def run_mesh_engine(dev, *, batch: int = BATCH, kgs: int = KGS, nodes: int = NODES,
-                    ticks: int = MESH_TICKS) -> dict:
-    """Phase 12 (d): Real Job 3 at phase 3's deployment under
-    ``.jit(mesh=make_mesh((1,), ("nodes",)))`` against ``.jit()`` on the
-    card, on the same batches: sink outputs and every integer field equal,
-    floats of the states within JIT_RTOL, tuple counts and arrival
-    histograms equal, jit calls equal, both routing kernels on every hop."""
-    from repro_torch.engine import ExecutionConfig
-    from repro_torch.launch.mesh import make_mesh
-
-    batches = source_batches("airline", ticks, batch, SEED)
-    mesh = make_mesh((1,), ("nodes",), device=dev)
-    engines = {"jit": job3_engine(dev, batch=batch, config=ExecutionConfig.jit()),
-               "mesh": job3_engine(dev, batch=batch, config=ExecutionConfig.jit(mesh=mesh))}
-    secs = {}
-    for name, eng in engines.items():
-        t0 = time.perf_counter()
-        for k, v, ts in batches:
-            check(eng.push_source("airline", k, v, ts) == batch, f"{name}: a batch was cut")
-            eng.tick()
-        for _ in range(DRAIN_TICKS):
-            eng.tick()
-        secs[name] = time.perf_counter() - t0
-    a, b = engines["jit"], engines["mesh"]
-    ma, mb = a.metrics, b.metrics
-    check(mb.jit_calls > 0 and mb.jit_calls == ma.jit_calls, f"jit calls {mb.jit_calls} under the "
-          f"mesh, {ma.jit_calls} without")
-    shards = sorted(o.shards for o in b._jit._by_op.values())
-    check(shards == [0, 1, 1], f"the mesh engine's operators hold {shards} table shards")
-    for field in ("sink_tuples", "processed_tuples", "emitted_tuples", "cross_node_tuples"):
-        check(getattr(ma, field) == getattr(mb, field), f"{field} differs under the mesh")
-    check(ma.sink_outputs == mb.sink_outputs, f"the mesh engine's {len(mb.sink_outputs)} sink "
-          "outputs differ from .jit()'s")
-    check(np.array_equal(a.window.kg_arrivals, b.window.kg_arrivals),
-          "arrival histograms differ under the mesh")
-    check(states_close(synced_states(a), synced_states(b)),
-          f"key-group state differs under the mesh beyond rtol {JIT_RTOL}")
-    exact = state_bytes(a) == state_bytes(b)
-    kernels = {name: hop_kernels(eng) for name, eng in engines.items()}
-    check(kernels["jit"] == kernels["mesh"], "routed hops' kernel batches differ under the mesh")
-    log(f"[dryrun/mesh] Real Job 3 under .jit(mesh=1x1 'nodes') against .jit(), {ticks} x "
-        f"{batch} tuples + {DRAIN_TICKS} drain ticks: {mb.sink_tuples} sink tuples and "
-        f"{len(mb.sink_outputs)} sink outputs equal, states equal (bit-equal {exact}), "
-        f"{mb.jit_calls} jit calls each; {secs['mesh']:.2f} s vs {secs['jit']:.2f} s")
-    return dict(sink_tuples=mb.sink_tuples, jit_calls=mb.jit_calls, states_bit_equal=exact,
-                seconds=secs, hop_kernels=kernels["mesh"])
-
-
 def run_phase12(dev, drive, ep_spec=None) -> dict:
-    """Phase 12's (a), (b) and (d); with ``ep_spec`` (an ``LM_RUNS`` entry:
-    ``--dryrun``) also (c), on that model's weights loaded for it after (b)
-    and freed before (d)."""
+    """Phase 12's (a) and (b); with ``ep_spec`` (an ``LM_RUNS`` entry:
+    ``--dryrun``) also (c), on that model's weights loaded for it after (b)."""
     import torch
 
     t0 = time.perf_counter()
@@ -4197,12 +4143,8 @@ def run_phase12(dev, drive, ep_spec=None) -> dict:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    routing = ("keygroup_partition", "radix_sort")
-    out["mesh_engine"], counts = drive(routing, run_mesh_engine, dev)
-    out["mesh_engine"]["launches"] = {name: counts[name] for name in routing}
     out["seconds"] = time.perf_counter() - t0
-    log(f"[dryrun] phase 12 in {out['seconds']:.1f} s; launches {out['launches']}, mesh engine "
-        f"{out['mesh_engine']['launches']}")
+    log(f"[dryrun] phase 12 in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
 
 

@@ -26,16 +26,13 @@ preset                  meaning
 Every preset routes through the card's kernels.  A :class:`CheckpointPolicy`
 adds periodic checkpoints (single-process engine or the multi-worker
 coordinator) and a :class:`SupervisionPolicy` worker supervision (heartbeat
-deadlines and respawn).  ``.jit(mesh=...)`` and ``.superstep(mesh=...)``
-run the compiled tier's run-sharded bodies over a one-axis mesh
-(:func:`repro_torch.launch.mesh.make_mesh`); the port holds the devices
-that are present, so on one card that axis has one shard.
+deadlines and respawn).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 
 #: Default capacity (bytes) of one shared-memory exchange lane — the
@@ -130,10 +127,6 @@ class ExecutionConfig:
     #: Whole-tick fusion of a linear ``jit_fusible`` chain on the device
     #: (the preset is :meth:`superstep`; requires ``use_fn_jit``).
     use_superstep: bool = False
-    #: The compiled tier's mesh (:class:`repro_torch.launch.mesh.Mesh`) and
-    #: the axis its runs shard over (default: the mesh's first axis).
-    jit_mesh: Any = None
-    jit_mesh_axis: Optional[str] = None
     #: Hot-key splitting (``split_degree >= 2`` enables
     #: ``Engine.split_keygroup``; 0 = disabled, no reserve slots).
     split_degree: int = 0
@@ -238,18 +231,14 @@ class ExecutionConfig:
         return cls(split_degree=int(degree), split_reserve=int(reserve))
 
     @classmethod
-    def jit(cls, *, mesh: Any = None, mesh_axis: Optional[str] = None) -> "ExecutionConfig":
-        """``.typed()`` plus the compiled ``fn_jit`` tier (run-sharded over
-        ``mesh``'s ``mesh_axis`` when a mesh is given)."""
-        return cls(use_fn_jit=True, jit_mesh=mesh, jit_mesh_axis=mesh_axis)
+    def jit(cls) -> "ExecutionConfig":
+        """``.typed()`` plus the compiled ``fn_jit`` tier."""
+        return cls(use_fn_jit=True)
 
     @classmethod
-    def superstep(
-        cls, *, mesh: Any = None, mesh_axis: Optional[str] = None
-    ) -> "ExecutionConfig":
-        """``.jit()`` plus whole-tick fusion into device programs (an engine
-        with a mesh never fuses: its ticks run the mesh's ``.jit()`` path)."""
-        return cls(use_fn_jit=True, use_superstep=True, jit_mesh=mesh, jit_mesh_axis=mesh_axis)
+    def superstep(cls) -> "ExecutionConfig":
+        """``.jit()`` plus whole-tick fusion into device programs."""
+        return cls(use_fn_jit=True, use_superstep=True)
 
     @classmethod
     def workers(

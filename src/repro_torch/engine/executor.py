@@ -1229,11 +1229,7 @@ class Engine:
         if jrt is None:
             from repro_torch.engine.jitexec import JitRuntime
 
-            jrt = self._jit = JitRuntime(
-                self.topology, self.store, self.metrics, self._kg_op, device=self.device,
-                mesh=self.config.jit_mesh, mesh_axis=self.config.jit_mesh_axis,
-                engine=self,
-            )
+            jrt = self._jit = JitRuntime(self)
         return jrt
 
     def _jit_exec(self, op, kgs, starts, ends, keys, values, ts):

@@ -46,17 +46,9 @@ indices are dropped) go to one trash slot past the end of a copy here:
 torch's scatters do not drop, and on the card an out-of-range index is a
 device-side assert.
 
-With a mesh (``ExecutionConfig.jit(mesh=...)``), a call runs the
-reference's run-sharded bodies: the segment's runs split over the mesh
-axis's shards (run → key group → disjoint state rows), each shard's state
-and output deltas merged by a sum of masked selects (the reference's psum
-inside ``shard_map``), so the merged result is the unsharded call's.  A
-keyed-table operator keeps its tables key-group-sharded, every
-:class:`TableState` leaf with a leading shard axis, and a shard updates
-only its own sub-table.  The shards run one after another on the engine's
-device; the port's meshes hold the devices that are present
-(:mod:`repro_torch.launch.mesh`), so on one card the axis has one shard
-and the merges reduce to their ``where`` selects.
+The port runs no mesh: the reference's ``.jit(mesh=...)`` shards runs over
+devices, and a port mesh holds only the devices present, so on one card
+its axis has one shard and the sharded call is the plain call.
 """
 
 from __future__ import annotations
@@ -68,7 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import declared_sync
-from repro_torch.engine.topology import StateField, Topology
+from repro_torch.engine.topology import StateField
 
 # Sentinel for unused table slots and padding tuple codes.  Real codes must
 # be < EMPTY_CODE (any keyed state built from finite attributes is).
@@ -334,93 +326,6 @@ def grown_table(t: TableState, new_cap: int) -> TableState:
     )
 
 
-def stack_tables(tables: list[TableState]) -> TableState:
-    """Per-shard sub-tables stacked along a new leading shard axis."""
-    return TableState(*(torch.stack(leaf) for leaf in zip(*tables)))
-
-
-def _merge_shards(orig, news: list, touched: list[torch.Tensor]):
-    """The reference's psum-of-masked-selects merge of one state column:
-    each shard's rows where it touched the key group, summed over shards,
-    where any shard touched it; ``orig`` elsewhere."""
-    t_any = torch.stack(touched).any(0)
-
-    def merge(o, *ns):
-        shape = (o.shape[0],) + (1,) * (o.dim() - 1)
-        zero = torch.zeros((), dtype=o.dtype, device=o.device)
-        summed = _shard_sum([torch.where(t.view(shape), n, zero) for t, n in zip(touched, ns)])
-        return torch.where(t_any.view(shape), summed, o)
-
-    if isinstance(orig, tuple):  # a VectorState
-        return type(orig)(*(merge(o, *ns) for o, *ns in zip(orig, *news)))
-    return merge(orig, *news)
-
-
-def _shard_sum(parts: list[torch.Tensor]) -> torch.Tensor:
-    """The psum over shards, in the parts' dtype (one shard: the part)."""
-    total = parts[0]
-    for part in parts[1:]:
-        total = (total + part).to(total.dtype)
-    return total
-
-
-def _merge_outputs(outs: list, oks: list[torch.Tensor]):
-    """Each shard's outputs at the positions of its own runs, summed."""
-    def merge(*cols):
-        zero = torch.zeros((), dtype=cols[0].dtype, device=cols[0].device)
-        return _shard_sum([torch.where(ok, c, zero) for ok, c in zip(oks, cols)])
-
-    merged = []
-    for i, part in enumerate(outs[0]):
-        if isinstance(part, dict):
-            merged.append({k: merge(*(o[i][k] for o in outs)) for k in part})
-        else:
-            merged.append(merge(*(o[i] for o in outs)))
-    return tuple(merged)
-
-
-def run_sharded(fn, d: int, state: dict, kgs, starts, ends, keys, values, ts, *,
-                table_names: tuple = ()):
-    """``fn`` over ``d`` shards of the runs (``len(kgs)`` a multiple of
-    ``d``), the reference's ``_jitted_sharded`` (and, with ``table_names``,
-    ``_jitted_sharded_tables``): shard ``s`` takes the ``s``-th block of the
-    runs and, for each named table, its sub-table ``s`` (tables are
-    key-group-sharded, runs laid out shard-major); the other state columns
-    and the outputs merge as :func:`_merge_shards` and
-    :func:`_merge_outputs` say.  Returns (state, outputs, None)."""
-    rs = kgs.shape[0] // d
-    nb = keys.shape[0]
-    cols = [name for name in state if name not in table_names]
-    num_kg = None
-    if cols:
-        first = state[cols[0]]
-        num_kg = (first[0] if isinstance(first, tuple) else first).shape[0]
-    news, outs, touched, oks = [], [], [], []
-    for s in range(d):
-        part = slice(s * rs, (s + 1) * rs)
-        local = {name: TableState(*(x[s] for x in v)) if name in table_names else v
-                 for name, v in state.items()}
-        state2, outputs, out_counts = fn(local, kgs[part], starts[part], ends[part], keys,
-                                         values, ts)
-        if out_counts is not None:
-            raise ValueError(
-                "run-sharded execution requires 1:1 (or output-free) fn_jit bodies — "
-                "out_counts must be None"
-            )
-        news.append(state2)
-        outs.append(outputs)
-        if num_kg is not None:
-            touched.append(scatter_drop(torch.zeros(num_kg, dtype=torch.bool, device=kgs.device),
-                                        kgs[part], True))
-        oks.append(tuple_valid(starts[part], ends[part], nb))
-    merged = {name: stack_tables([n[name] for n in news]) if name in table_names
-              else _merge_shards(col, [n[name] for n in news], touched)
-              for name, col in state.items()}
-    if outs[0] is None:
-        return merged, None, None
-    return merged, _merge_outputs(outs, oks), None
-
-
 class _OpState:
     __slots__ = (
         "op",
@@ -428,9 +333,7 @@ class _OpState:
         "base",
         "nkg",
         "fields",
-        "has_tables",
         "has_vectors",
-        "shards",
         "cols",
         "caps",
         "cnt_host",
@@ -441,7 +344,7 @@ class _OpState:
         "seen_keys",
     )
 
-    def __init__(self, op: int, spec, base: int, device: torch.device, shards: int = 0) -> None:
+    def __init__(self, op: int, spec, base: int, device: torch.device) -> None:
         self.op = op
         self.spec = spec
         self.base = base
@@ -449,14 +352,9 @@ class _OpState:
         self.fields: tuple[StateField, ...] = (
             spec.state_schema.fields if spec.state_schema is not None else ()
         )
-        self.has_tables = any(f.kind == "table" for f in self.fields)
         self.has_vectors = any(f.kind == "vector" for f in self.fields)
-        # > 0 ⇒ keyed tables live key-group-sharded: every TableState leaf
-        # carries a leading (shards,) axis and cnt_host holds one count per
-        # shard.
-        self.shards = shards if self.has_tables else 0
         self.caps: dict[str, int] = {}
-        self.cnt_host: dict[str, object] = {}
+        self.cnt_host: dict[str, int] = {}
         self.col_auth = np.zeros(self.nkg, dtype=bool)
         cols = {}
         for f in self.fields:
@@ -470,14 +368,8 @@ class _OpState:
                 )
             else:
                 self.caps[f.name] = _MIN_TABLE_CAP
-                if self.shards:
-                    self.cnt_host[f.name] = np.zeros(self.shards, np.int64)
-                    cols[f.name] = stack_tables(
-                        [empty_table(_MIN_TABLE_CAP, f.dtype, device)] * self.shards
-                    )
-                else:
-                    self.cnt_host[f.name] = 0
-                    cols[f.name] = empty_table(_MIN_TABLE_CAP, f.dtype, device)
+                self.cnt_host[f.name] = 0
+                cols[f.name] = empty_table(_MIN_TABLE_CAP, f.dtype, device)
         self.cols = cols
         self.value_names = spec.schema.value.names if spec.schema is not None else None
         out_schema = spec.out_schema
@@ -485,45 +377,26 @@ class _OpState:
         self.out_names = None if out_schema is None else out_schema.value.names
         self.seen_keys: set = set()
 
-    def shard_of(self, lkgs: np.ndarray) -> np.ndarray:
-        """Owning shard per local key group (monotone in the key group)."""
-        return (np.asarray(lkgs, dtype=np.int64) * self.shards) // self.nkg
-
 
 class JitRuntime:
-    """Executes fn_jit operators over device state columns for one Engine."""
+    """Executes fn_jit operators over device state columns for one Engine.
 
-    def __init__(
-        self,
-        topology: Topology,
-        store,
-        metrics,
-        kg_op: np.ndarray,
-        *,
-        device: torch.device,
-        mesh=None,
-        mesh_axis: Optional[str] = None,
-        engine=None,
-    ) -> None:
-        # Shards of the mesh axis the runs split over (0: no mesh).
-        shards = 0
-        if mesh is not None:
-            shards = int(mesh.shape[mesh_axis or mesh.axis_names[0]])
-            if shards & (shards - 1):
-                raise ValueError("jit mesh axis size must be a power of two")
-        self._shards = shards
-        self._store = store
-        self._metrics = metrics
-        self._engine = engine  # whose ``spans`` the phases of a call go to
-        self._kg_op = kg_op
-        self.device = device
+    Reads the engine's topology, store, metrics, key-group → operator map,
+    device and spans; ``engine.spans`` at each use, since the owner may set
+    it after the runtime is built."""
+
+    def __init__(self, engine) -> None:
+        self._engine = engine
+        self._store = engine.store
+        self._metrics = engine.metrics
+        self.device = device = engine.device
         self._pin = device.type == "cuda"
         self.compile_seconds = 0.0
         self._by_op: dict[int, _OpState] = {}
+        topology = engine.topology
         for op, spec in enumerate(topology.operators):
             if spec.fn_jit is not None:
-                self._by_op[op] = _OpState(op, spec, topology.kg_base(op), device,
-                                           shards=shards)
+                self._by_op[op] = _OpState(op, spec, topology.kg_base(op), device)
 
     # ------------------------------------------------------ host ↔ device
     def _put(self, src: np.ndarray, nb: int, fill=0) -> torch.Tensor:
@@ -565,9 +438,9 @@ class JitRuntime:
         m = self._metrics
         name = f"jit_{phase}_seconds"
         setattr(m, name, getattr(m, name) + (t1 - t0))
-        eng = self._engine
-        if eng is not None and eng.spans is not None:
-            eng.spans.append((f"jit.{phase}:{ost.spec.name}", t0, t1))
+        spans = self._engine.spans
+        if spans is not None:
+            spans.append((f"jit.{phase}:{ost.spec.name}", t0, t1))
         return t1
 
     # ------------------------------------------------------------ execution
@@ -604,17 +477,12 @@ class JitRuntime:
             )
         nb = _bucket(n, _MIN_TUPLE_BUCKET)
         rb = _bucket(r, _MIN_RUN_BUCKET)
-        if self._shards:
-            rb = _bucket(rb, self._shards)
         # The put phase: the pushes of dict-authoritative state, the padding
         # and the uploads, up to the body's call.
         t_put = time.perf_counter()
         lkgs = np.asarray(kgs, dtype=np.int64) - ost.base
         if ost.fields:
             self._prepare_state(ost, lkgs, n)
-        if ost.shards:
-            return self._execute_sharded_tables(ost, lkgs, starts, ends, keys, values, ts, n, r,
-                                                t_put)
         put = self._put
         kg_pad = put(lkgs, rb, ost.nkg)
         s_pad = put(np.asarray(starts, dtype=np.int64), rb, n)
@@ -625,35 +493,20 @@ class JitRuntime:
             v_arg = put(values, nb)
         else:
             v_arg = {name: put(values[name], nb) for name in ost.value_names}
-        # Plain run-sharding merges per-shard state by key-group ownership —
-        # sound for per-key-group columns (table operators take the
-        # key-group-sharded path above).  Duplicate key groups in one call
-        # (budget-leftover segments concatenated with a fresh batch) must
-        # not shard-split: two shards would both update the key group from
-        # the same base and the merge would double-count it.
-        use_shard = self._shards > 0 and not ost.has_tables and len(set(kgs)) == r
-        key = (nb, rb, tuple(sorted(ost.caps.items())), use_shard)
-        first = self._first_call(ost, key)
+        first = self._first_call(ost, (nb, rb, tuple(sorted(ost.caps.items()))))
         t0 = self._timed("put", ost, t_put)
-        if use_shard:
-            state_new, outputs, out_counts = run_sharded(
-                ost.spec.fn_jit, self._shards, ost.cols, kg_pad, s_pad, e_pad, key_pad, v_arg,
-                ts_pad,
-            )
-        else:
-            state_new, outputs, out_counts = ost.spec.fn_jit(
-                ost.cols, kg_pad, s_pad, e_pad, key_pad, v_arg, ts_pad
-            )
+        state_new, outputs, out_counts = ost.spec.fn_jit(
+            ost.cols, kg_pad, s_pad, e_pad, key_pad, v_arg, ts_pad
+        )
         if first:
             self._compiled(t0)
         self._timed("call", ost, t0)
         return self._finish(ost, lkgs, n, r, state_new, outputs, out_counts)
 
-    def _finish(self, ost, lkgs, n, r, state_new, outputs, out_counts, perm=None):
+    def _finish(self, ost, lkgs, n, r, state_new, outputs, out_counts):
         """Install a call's state, read back the tables' counts and the
         outputs after one synchronization, and return ``(outputs,
-        out_counts)`` as an ``fn_seg`` call does; ``perm`` is the tuple
-        order the call ran in (the sharded layout), undone on the host."""
+        out_counts)`` as an ``fn_seg`` call does."""
         ost.cols = state_new
         tables = [f.name for f in ost.fields if f.kind == "table"]
         reads = [state_new[name].cnt for name in tables]
@@ -675,7 +528,7 @@ class JitRuntime:
         host = self._fetch(reads)
         self._timed("fetch", ost, t0)
         for i, name in enumerate(tables):
-            ost.cnt_host[name] = host[i].astype(np.int64) if ost.shards else int(host[i])
+            ost.cnt_host[name] = int(host[i])
         ost.col_auth[lkgs] = True
         self._metrics.jit_calls += 1
         self._metrics.jit_tuples += n
@@ -688,17 +541,13 @@ class JitRuntime:
             lens_arr = ov_h.pop()[:r]
             total = int(lens_arr.sum())
             lens = lens_arr.tolist()
-        take = slice(None, total)
-        if perm is not None:  # positional over the permuted tuples: ungather
-            take = np.empty(n, dtype=np.int64)
-            take[perm] = np.arange(n)
         if isinstance(ov, dict):
             ov_np = np.empty(total, dtype=ost.out_dtype)
             for name, col in zip(ost.out_names, ov_h):
-                ov_np[name] = col[take]
+                ov_np[name] = col[:total]
         else:
-            ov_np = ov_h[0][take]
-        return (ok_h[take], ov_np, ot_h[take]), lens
+            ov_np = ov_h[0][:total]
+        return (ok_h[:total], ov_np, ot_h[:total]), lens
 
     def _first_call(self, ost: _OpState, key) -> bool:
         """Count the first call of ``key`` as a compile, as the reference
@@ -715,67 +564,6 @@ class JitRuntime:
                 torch.cuda.synchronize(self.device)
         self.compile_seconds += time.perf_counter() - t0
 
-    def _execute_sharded_tables(self, ost, lkgs, starts, ends, keys, values, ts, n, r, t_put):
-        """Key-group-sharded execution of a keyed-table operator.
-
-        The host lays the call out shard-major, as the reference does: runs
-        stable-sorted by their owning shard, tuples gathered run-major so
-        every shard's runs tile a contiguous block, each shard padded to a
-        common run bucket.  Per key group, run order and within-run tuple
-        order are kept (a key group lives wholly on one shard), so the
-        result is the plain call's.  Outputs come back positionally over
-        the permuted tuples and are ungathered on the host (1:1 bodies
-        only)."""
-        d = ost.shards
-        st_arr = np.asarray(starts, dtype=np.int64)
-        en_arr = np.asarray(ends, dtype=np.int64)
-        shard_ids = ost.shard_of(lkgs)
-        order_runs = np.argsort(shard_ids, kind="stable")
-        lens = en_arr - st_arr
-        if r:
-            perm = np.concatenate([np.arange(st_arr[i], en_arr[i]) for i in order_runs])
-        else:
-            perm = np.empty(0, np.int64)
-        rs_per = np.bincount(shard_ids, minlength=d)
-        rbs = _bucket(int(rs_per.max()) if r else 1, _MIN_RUN_BUCKET)
-        nb = _bucket(n, _MIN_TUPLE_BUCKET)
-        new_lens = lens[order_runs]
-        new_ends = np.cumsum(new_lens)
-        new_starts = new_ends - new_lens
-        kg_pad = np.full(d * rbs, ost.nkg, dtype=np.int64)
-        s_pad = np.empty(d * rbs, dtype=np.int64)
-        e_pad = np.empty(d * rbs, dtype=np.int64)
-        pos = off = 0
-        for s in range(d):
-            cnt_s = int(rs_per[s])
-            blk_end = int(new_ends[pos + cnt_s - 1]) if cnt_s else off
-            base_i = s * rbs
-            s_pad[base_i : base_i + rbs] = blk_end
-            e_pad[base_i : base_i + rbs] = blk_end
-            if cnt_s:
-                kg_pad[base_i : base_i + cnt_s] = lkgs[order_runs[pos : pos + cnt_s]]
-                s_pad[base_i : base_i + cnt_s] = new_starts[pos : pos + cnt_s]
-                e_pad[base_i : base_i + cnt_s] = new_ends[pos : pos + cnt_s]
-            pos += cnt_s
-            off = blk_end
-        put = self._put
-        if ost.value_names is None:
-            v_arg = put(np.asarray(values)[perm], nb)
-        else:
-            v_arg = {name: put(np.asarray(values[name])[perm], nb) for name in ost.value_names}
-        args = (put(kg_pad, d * rbs), put(s_pad, d * rbs), put(e_pad, d * rbs),
-                put(np.asarray(keys)[perm], nb), v_arg,
-                put(np.asarray(ts, dtype=np.float64)[perm], nb))
-        table_names = tuple(sorted(f.name for f in ost.fields if f.kind == "table"))
-        first = self._first_call(ost, (nb, rbs, tuple(sorted(ost.caps.items())), "shard_tab"))
-        t0 = self._timed("put", ost, t_put)
-        state_new, outputs, out_counts = run_sharded(ost.spec.fn_jit, d, ost.cols, *args,
-                                                     table_names=table_names)
-        if first:
-            self._compiled(t0)
-        self._timed("call", ost, t0)
-        return self._finish(ost, lkgs, n, r, state_new, outputs, out_counts, perm=perm)
-
     # ----------------------------------------------------- state coherence
     def _prepare_state(self, ost: _OpState, lkgs: np.ndarray, n: int) -> None:
         """Push dict-authoritative state, then size tables for this call."""
@@ -785,19 +573,11 @@ class JitRuntime:
         for f in ost.fields:
             if f.kind != "table":
                 continue
-            # The segment can insert at most one entry per tuple (per shard,
-            # when sharded — every shard sizes for the worst case).
-            cnt = ost.cnt_host[f.name]
-            need = (int(np.max(cnt)) if ost.shards else cnt) + n
+            # The segment can insert at most one entry per tuple.
+            need = ost.cnt_host[f.name] + n
             if need > ost.caps[f.name]:
                 new_cap = _bucket(need, _MIN_TABLE_CAP)
-                t = ost.cols[f.name]
-                if ost.shards:
-                    t = stack_tables([grown_table(TableState(*(x[s] for x in t)), new_cap)
-                                      for s in range(ost.shards)])
-                else:
-                    t = grown_table(t, new_cap)
-                ost.cols[f.name] = t
+                ost.cols[f.name] = grown_table(ost.cols[f.name], new_cap)
                 ost.caps[f.name] = new_cap
 
     def _push(self, ost: _OpState, pend: np.ndarray) -> None:
@@ -834,9 +614,6 @@ class JitRuntime:
                     data=v.data.index_put((idx,), put(data.ravel(), m * f.length).view(m, -1)),
                     cnt=v.cnt.index_put((idx,), put(cnt, m)),
                 )
-                continue
-            if ost.shards:
-                self._push_sharded_table(ost, f, pend)
                 continue
             t = ost.cols[f.name]
             cnt = ost.cnt_host[f.name]
@@ -886,81 +663,6 @@ class JitRuntime:
             ost.cnt_host[f.name] = total
         ost.col_auth[pend] = True
 
-    def _push_sharded_table(self, ost: _OpState, f: StateField, pend: np.ndarray) -> None:
-        """Per-shard restatement of the flat table rebuild in :meth:`_push`:
-        only the shards owning pushed key groups are rebuilt; the rest copy
-        through (their EMPTY perm tail extends with fresh indices on a
-        capacity bump)."""
-        store = self._store.raw()
-        d = ost.shards
-        t = ost.cols[f.name]
-        cnt_arr = np.asarray(ost.cnt_host[f.name], dtype=np.int64).copy()
-        codes_h, vals_h, seq_h, owner_h, perm_h, epoch_h = self._fetch(
-            [t.codes, t.vals, t.seq, t.owner, t.perm, t.epoch])
-        epoch_h = epoch_h.copy()
-        shard_ids = ost.shard_of(pend)
-        old_cap = codes_h.shape[1]
-        cap = ost.caps[f.name]
-        enc = f.key_encode
-        per_shard = {}
-        for s in sorted(set(shard_ids.tolist())):
-            kgs_s = pend[shard_ids == s]
-            cnt = int(cnt_arr[s])
-            keep = ~np.isin(owner_h[s, :cnt], kgs_s)
-            new_c, new_v, new_o = [], [], []
-            for lk in kgs_s:
-                for key, val in store[ost.base + int(lk)].get(f.name, {}).items():
-                    new_c.append(enc(key))
-                    new_v.append(val)
-                    new_o.append(lk)
-            total = int(keep.sum()) + len(new_c)
-            per_shard[s] = (cnt, keep, new_c, new_v, new_o, total)
-            if total > cap:
-                cap = _bucket(total, _MIN_TABLE_CAP)
-        ost.caps[f.name] = cap
-        pc = np.full((d, cap), EMPTY_CODE, dtype=np.int64)
-        pv = np.zeros((d, cap), dtype=f.dtype)
-        ps = np.zeros((d, cap), dtype=np.int64)
-        po = np.zeros((d, cap), dtype=np.int32)
-        pp = np.zeros((d, cap), dtype=np.int32)
-        for s in range(d):
-            if s not in per_shard:
-                pc[s, :old_cap] = codes_h[s]
-                pv[s, :old_cap] = vals_h[s]
-                ps[s, :old_cap] = seq_h[s]
-                po[s, :old_cap] = owner_h[s]
-                pp[s, :old_cap] = perm_h[s]
-                pp[s, old_cap:] = np.arange(old_cap, cap)
-                continue
-            cnt, keep, new_c, new_v, new_o, total = per_shard[s]
-            n_keep = int(keep.sum())
-            pc[s, :n_keep] = codes_h[s, :cnt][keep]
-            pv[s, :n_keep] = vals_h[s, :cnt][keep]
-            ps[s, :n_keep] = seq_h[s, :cnt][keep]
-            po[s, :n_keep] = owner_h[s, :cnt][keep]
-            base_seq = int(ps[s, :n_keep].max()) + 1 if n_keep else 0
-            if new_c:
-                pc[s, n_keep:total] = new_c
-                pv[s, n_keep:total] = new_v
-                ps[s, n_keep:total] = base_seq + np.arange(len(new_c))
-                po[s, n_keep:total] = new_o
-            pp[s] = np.argsort(pc[s], kind="stable").astype(np.int32)
-            max_seq = int(ps[s, :total].max()) if total else 0
-            epoch_h[s] = max(int(epoch_h[s]), (max_seq >> 32) + 1)
-            cnt_arr[s] = total
-        put = self._put
-        size = d * cap
-        ost.cols[f.name] = TableState(
-            codes=put(pc.ravel(), size).view(d, cap),
-            vals=put(pv.ravel(), size).view(d, cap),
-            seq=put(ps.ravel(), size).view(d, cap),
-            owner=put(po.ravel(), size).view(d, cap),
-            perm=put(pp.ravel(), size).view(d, cap),
-            cnt=put(cnt_arr.astype(np.int32), d),
-            epoch=put(epoch_h.astype(np.int64), d),
-        )
-        ost.cnt_host[f.name] = cnt_arr
-
     def _host_cols(self, ost: _OpState) -> dict:
         """Every state column of ``ost`` on the host (one read); tables'
         used entries grouped by owner in insertion order, with each key
@@ -972,12 +674,6 @@ class JitRuntime:
                 got = [c]
             elif f.kind == "vector":
                 got = [c.data, c.cnt]
-            elif ost.shards:
-                # A key group's entries live wholly in its owning shard, so
-                # the shards' used entries, concatenated, keep its order.
-                cnt = ost.cnt_host[f.name]
-                got = [torch.cat([x[s, : int(cnt[s])] for s in range(ost.shards)])
-                       for x in (c.codes, c.vals, c.seq, c.owner)]
             else:
                 cnt = ost.cnt_host[f.name]
                 got = [c.codes[:cnt], c.vals[:cnt], c.seq[:cnt], c.owner[:cnt]]
@@ -1019,7 +715,7 @@ class JitRuntime:
         Called by the engine before any per-run ``fn`` fallback or state
         serialization touches a jit-tier operator's key group.
         """
-        ost = self._by_op.get(int(self._kg_op[kg]))
+        ost = self._by_op.get(int(self._engine._kg_op[kg]))
         if ost is None or not ost.fields:
             return
         lk = kg - ost.base
@@ -1030,7 +726,7 @@ class JitRuntime:
 
     def invalidate(self, kg: int) -> None:
         """Dict state was externally replaced (migration install)."""
-        ost = self._by_op.get(int(self._kg_op[kg]))
+        ost = self._by_op.get(int(self._engine._kg_op[kg]))
         if ost is not None and ost.fields:
             ost.col_auth[kg - ost.base] = False
 

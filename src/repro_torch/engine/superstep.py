@@ -170,13 +170,10 @@ class _Plan:
 def plan_chain(engine) -> Optional[_Plan]:
     """Static superstep eligibility; ``None`` → this engine never fuses.
 
-    An engine whose jit tier runs over a mesh never fuses, as in the
-    reference.  The reference also refuses engines that collect its Pallas
-    partition statistics (``kernel_stats``); the port has no such switch
-    (routing always runs through its kernels).
+    The reference refuses engines that collect its Pallas partition
+    statistics (``kernel_stats``); the port has no such switch (routing
+    always runs through its kernels).
     """
-    if engine.config.jit_mesh is not None:
-        return None
     topo = engine.topology
     if not engine.use_schema:
         return None

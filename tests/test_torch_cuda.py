@@ -1388,8 +1388,8 @@ def test_xlstm_and_whisper_smoke_on_card_match_cpu(cuda, arch):
 
 
 # ---------------------------------------------------------------------------
-# The mesh tooling on the card: expert parallelism, the mesh engine, the
-# kernels' meta arms and one dry-run cell run at SMOKE size
+# The mesh tooling on the card: expert parallelism, the kernels' meta arms
+# and one dry-run cell run at SMOKE size
 # ---------------------------------------------------------------------------
 
 
@@ -1435,22 +1435,6 @@ def test_expert_parallel_step_on_card_matches_local(cuda, arch):
     assert counts["moe_gemm"] > 0 and counts["flash_attention"] > 0
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=2e-4, rtol=2e-4)
-
-
-def test_mesh_engine_on_card_matches_jit(cuda):
-    """Real Job 3 under ``.jit(mesh=make_mesh((1,), ("nodes",)))`` on the
-    card against ``.jit()`` (chip_smoke.py phase 12 (d) at a small size)."""
-    import sys
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke as cs
-
-    reset_launch_counts()
-    out = cs.run_mesh_engine(torch.device("cuda", 0), batch=4096, kgs=50, nodes=16)
-    counts = launch_counts()
-    assert counts["keygroup_partition"] > 0 and counts["radix_sort"] > 0
-    assert out["sink_tuples"] > 0 and out["jit_calls"] > 0
 
 
 def test_dryrun_cell_runs_on_card(cuda, tmp_path):

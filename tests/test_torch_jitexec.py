@@ -12,11 +12,10 @@ the reference's (``repro.engine.jitexec``), on the CPU.
 * The conformance pipeline's and the fuzz pool's ``fn_jit`` bodies,
   re-written here as torch bodies, run on their topologies against the
   reference's ``.jit()`` and ``.typed()`` engines in the harness's three
-  scenarios, with the jit counters equal call for call.
-* The mesh path (``.jit(mesh=...)``, ``.superstep(mesh=...)``,
-  ``JitRuntime(mesh=...)``) against the reference's one-device mesh engine
-  on Real Jobs 2 and 3, and sharded over 2 and 4 shards against the plain
-  ``.jit()`` call.
+  scenarios, with the jit counters equal call for call; and Real Jobs 2
+  and 3 on the port's ``.jit()`` against the reference's one-device mesh
+  engine (``.jit(mesh=jax.make_mesh((1,), ("nodes",)))``), the port's
+  one path against what the reference's mesh path computes.
 """
 
 import math
@@ -455,27 +454,48 @@ FUZZ_SPECS = {
 }
 
 
+# Real Jobs whose reference runs as the one-device mesh engine.
+MESH_JOBS = ("job2", "job3")
+
+
 def _topologies(name):
-    """(reference factory, port factory, feeder factory) per topology."""
+    """(reference factory, reference feeders, port factory, port feeders)
+    per topology."""
+    if name in MESH_JOBS:
+        from test_torch_engine import _port_factories, _ref_factories
+
+        return (*_ref_factories(name), *_port_factories(name))
     if name == "pipeline":
         from conformance import _pipeline_feeders
 
-        return (lambda: make_pipeline_topo(12), lambda: port_pipeline_topo(12), _pipeline_feeders)
+        return (lambda: make_pipeline_topo(12), _pipeline_feeders,
+                lambda: port_pipeline_topo(12), _pipeline_feeders)
     spec = FUZZ_SPECS[name]
-    return (lambda: make_fuzz_topology(spec), lambda: port_fuzz_topology(spec), fuzz_feeders(spec))
+    feeders = fuzz_feeders(spec)
+    return (lambda: make_fuzz_topology(spec), feeders, lambda: port_fuzz_topology(spec), feeders)
+
+
+def _ref_jit_config(name):
+    """The reference's ``.jit()``; for :data:`MESH_JOBS`, its mesh engine on
+    one device."""
+    if name in MESH_JOBS:
+        import jax
+
+        return ref_engine.ExecutionConfig.jit(mesh=jax.make_mesh((1,), ("nodes",)))
+    return ref_engine.ExecutionConfig.jit()
 
 
 _JIT_COUNTERS = ("jit_calls", "jit_compiles", "jit_host_syncs", "seg_calls", "seg_tuples")
 
 
 @pytest.mark.parametrize("scenario", list(SCENARIOS), ids=str)
-@pytest.mark.parametrize("topo", ["pipeline", *FUZZ_SPECS], ids=str)
+@pytest.mark.parametrize("topo", ["pipeline", *FUZZ_SPECS, *MESH_JOBS], ids=str)
 def test_jit_bodies_match_reference(topo, scenario):
-    ref_topo, port_topo, feeders = _topologies(topo)
+    ref_topo, ref_feeders, port_topo, port_feeders = _topologies(topo)
     sc = SCENARIOS[scenario]
-    ref_jit = run_scenario(ref_topo, feeders, sc, ref_engine.ExecutionConfig.jit())
-    ref_typed = run_scenario(ref_topo, feeders, sc, ref_engine.ExecutionConfig.typed())
-    port, eng = run_port_scenario(port_topo, feeders, sc, port_engine.ExecutionConfig.jit())
+    ref_jit = run_scenario(ref_topo, ref_feeders, sc, _ref_jit_config(topo))
+    ref_typed = run_scenario(ref_topo, ref_feeders, sc, ref_engine.ExecutionConfig.typed())
+    port, eng = run_port_scenario(port_topo, port_feeders, sc, port_engine.ExecutionConfig.jit())
     assert_equivalent({"ref:soa+seg+schema+jit": ref_jit, "port:soa+seg+schema+jit": port})
     assert_equivalent({"ref:soa+seg+schema": ref_typed, "port:soa+seg+schema+jit": port})
     assert port["jit_calls"] > 0
@@ -593,133 +613,21 @@ def test_install_then_jit_resumes_from_installed_state():
     assert eng.store.get(kg)["n"] >= before["n"]
 
 
-# ---------------------------------------------------------------------------
-# the mesh path: .jit(mesh=...), .superstep(mesh=...), JitRuntime(mesh=...)
-# ---------------------------------------------------------------------------
+def test_duplicate_key_groups_run_as_one_plain_call():
+    """Duplicate key groups in one call run as one plain call: scalar state
+    stays exact, as the reference's parity script checks."""
+    e = port_engine.Engine(port_pipeline_topo(4), 2, service_rate=1e9, seed=0, device="cpu",
+                           config=port_engine.ExecutionConfig.jit())
+    g = e.topology.kg_base(1)
+    keys = np.arange(4, dtype=np.int64)
+    out, _ = e._jit_exec(1, [g + 1, g + 1], [0, 2], [2, 4], keys, keys, np.zeros(4))
+    e._jit.sync_store()
+    assert e.store.get(g + 1) == {"n": 4}
+    assert np.asarray(out[0]).tolist() == (keys + 17).tolist()  # the body's 1:1 outputs
 
 
-class FakeMesh:
-    """A mesh record by its shape alone (the runtime reads only ``.shape``
-    and ``.axis_names``, as the reference's does)."""
-
-    def __init__(self, **axes):
-        self.shape = axes
-        self.axis_names = tuple(axes)
-
-
-@pytest.mark.parametrize("scenario", list(SCENARIOS), ids=str)
-@pytest.mark.parametrize("job", ["job2", "job3"], ids=str)
-def test_mesh_engine_matches_reference_mesh_engine(job, scenario):
-    """The port's ``.jit(mesh=make_mesh((1,), ("nodes",)))`` against the
-    reference's ``.jit(mesh=jax.make_mesh((1,), ("nodes",)))`` on Real Jobs
-    2 and 3 (job 3's route sums take the key-group-sharded tables path):
-    sink outputs, stores and every pinned field equal (floats at the jit
-    tolerance), the jit counters call for call."""
-    import jax
-
-    from repro_torch.launch.mesh import make_mesh
-    from test_torch_engine import _port_factories, _ref_factories
-
-    rcfg = ref_engine.ExecutionConfig.jit(mesh=jax.make_mesh((1,), ("nodes",)))
-    ref = run_scenario(*_ref_factories(job), SCENARIOS[scenario], rcfg)
-    pcfg = port_engine.ExecutionConfig.jit(mesh=make_mesh((1,), ("nodes",), device="cpu"))
-    port, eng = run_port_scenario(*_port_factories(job), SCENARIOS[scenario], pcfg)
-    assert_equivalent({f"ref:{rcfg.name}": ref, f"port:{pcfg.name}": port})
-    assert port["jit_calls"] > 0
-    for field in _JIT_COUNTERS:
-        assert port[field] == ref[field], field
-    shards = sorted(o.shards for o in eng._jit._by_op.values())
-    assert shards[-1] == 1 and shards.count(1) == (2 if job == "job3" else 1)
-
-
-@pytest.mark.parametrize("job", ["real_job_2", "real_job_3"])
-@pytest.mark.parametrize("d", [2, 4])
-def test_sharded_runs_match_plain_jit(job, d):
-    """The reference's two-device parity check on the port: a mesh axis of
-    ``d`` shards (run one after another on the engine's device) merges
-    per-shard state and output deltas, and key-group-sharded tables, into
-    the plain call's result."""
-    from repro_torch.data import jobs as port_jobs
-    from repro_torch.data.synthetic import StreamSpec, airline_stream
-
-    kw = dict(service_rate=1e9, seed=0, collect_sinks=True, device="cpu")
-    make = getattr(port_jobs, job)
-    cfgs = [port_engine.ExecutionConfig.jit(), port_engine.ExecutionConfig.jit(mesh=FakeMesh(nodes=d))]
-    engines = [port_engine.Engine(make(keygroups_per_op=4), 2, config=c, **kw) for c in cfgs]
-    stream = airline_stream(StreamSpec(rate=120.0, seed=5))
-    batches = [next(stream) for _ in range(5)]
-    for eng in engines:
-        for k, v, ts in batches:
-            eng.push_source("airline", k, v, ts)
-            eng.tick()
-        for _ in range(4):
-            eng.tick()
-        eng.end_period()
-    a, b = engines
-    assert b.metrics.jit_calls > 0 and max(o.shards for o in b._jit._by_op.values()) == d
-    assert a.metrics.processed_tuples == b.metrics.processed_tuples
-    assert len(a.metrics.sink_outputs) == len(b.metrics.sink_outputs)
-    for (k1, v1, t1), (k2, v2, t2) in zip(a.metrics.sink_outputs, b.metrics.sink_outputs):
-        assert k1 == k2 and t1 == t2
-        np.testing.assert_allclose(v1[1], v2[1], rtol=RTOL, atol=ATOL)
-    for kg in range(a.topology.num_keygroups):
-        sa, sb = a.store.get(kg), b.store.get(kg)
-        assert list(sa) == list(sb)
-        for name in sa:
-            assert list(sa[name]) == list(sb[name])
-            np.testing.assert_allclose(list(sa[name].values()), list(sb[name].values()),
-                                       rtol=RTOL, atol=ATOL)
-
-
-def test_duplicate_key_groups_do_not_shard_split():
-    """Duplicate key groups in one call take the plain call (two shards
-    would both update the key group from the same base): scalar state stays
-    exact, as the reference's parity script checks."""
-    results = []
-    for m in (None, FakeMesh(nodes=2)):
-        e = port_engine.Engine(port_pipeline_topo(4), 2, service_rate=1e9, seed=0, device="cpu",
-                               config=port_engine.ExecutionConfig.jit(mesh=m))
-        g = e.topology.kg_base(1)
-        keys = np.arange(4, dtype=np.int64)
-        out, _ = e._jit_exec(1, [g + 1, g + 1], [0, 2], [2, 4], keys, keys, np.zeros(4))
-        e._jit.sync_store()
-        results.append((e.store.get(g + 1), np.asarray(out[0]).tolist()))
-    assert results[0] == results[1] and results[0][0] == {"n": 4}
-
-
-def test_mesh_axis_must_be_a_power_of_two_and_present():
+def test_mesh_needs_the_devices_it_names():
     from repro_torch.launch.mesh import make_mesh
 
-    cfg = port_engine.ExecutionConfig.jit(mesh=FakeMesh(nodes=3))
-    eng = port_engine.Engine(port_pipeline_topo(4), 2, service_rate=1e9, seed=0, device="cpu",
-                             config=cfg)
-    with pytest.raises(ValueError, match="power of two"):
-        _feed_pipeline(eng, [20])
-    with pytest.raises(ValueError, match="power of two"):
-        jx.JitRuntime(port_pipeline_topo(4), None, None, None, device=CPU,
-                      mesh=FakeMesh(nodes=6, other=1))
     with pytest.raises(RuntimeError, match="needs 2 devices, found 1"):
         make_mesh((2,), ("nodes",), device="cpu")
-
-
-def test_superstep_with_mesh_never_fuses():
-    """``.superstep(mesh=...)`` plans no fused chain, as the reference's
-    ``plan_chain`` refuses a mesh: the engine runs the mesh's ``.jit()``
-    path, counters included."""
-    from repro_torch.engine.superstep import plan_chain
-    from repro_torch.launch.mesh import make_mesh
-
-    mesh = make_mesh((1,), ("nodes",), device="cpu")
-    runs = {}
-    for name, cfg in (("superstep", port_engine.ExecutionConfig.superstep(mesh=mesh)),
-                      ("jit", port_engine.ExecutionConfig.jit(mesh=mesh))):
-        eng = port_engine.Engine(port_pipeline_topo(8), 2, service_rate=1e9, seed=0,
-                                 collect_sinks=True, device="cpu", config=cfg)
-        assert cfg.jit_mesh is mesh and plan_chain(eng) is None
-        _feed_pipeline(eng, [60, 130, 90])
-        runs[name] = (eng.metrics.sink_outputs, eng.metrics.jit_calls, eng.metrics.jit_compiles)
-    assert runs["superstep"][1] > 0
-    assert runs["superstep"] == runs["jit"]
-    plain = port_engine.Engine(port_pipeline_topo(8), 2, service_rate=1e9, seed=0, device="cpu",
-                               config=port_engine.ExecutionConfig.superstep())
-    assert plan_chain(plain) is not None
